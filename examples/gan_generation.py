@@ -8,7 +8,7 @@ vs the corpus profiles).
     python examples/gan_generation.py [corpus_dir] [out_dir] [epochs]
 
 Defaults: work/data/guitar_bass, /tmp/mst-gan-example, 20 epochs
-(~1 min on CPU; seconds on a TPU after the first compile).
+(~1 min on CPU).
 """
 
 import os
@@ -32,11 +32,10 @@ from musicstyletransfer_tpu.training.gan_trainer import (
     GANTrainConfig,
     GANTrainer,
 )
-from musicstyletransfer_tpu.utils import configure_jax_cache, respect_platforms_env
+from musicstyletransfer_tpu.utils import configure_jax_cache
 
 
 def main() -> None:
-    respect_platforms_env()
     configure_jax_cache()
     corpus_dir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         REPO, "work/data/guitar_bass"

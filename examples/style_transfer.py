@@ -35,8 +35,7 @@ from musicstyletransfer_tpu.utils import configure_jax_cache
 def main() -> None:
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     corpus = sorted(
-        glob.glob(os.path.join(repo, "work/data/guitar_bass/*/*.mid"))
-    ) or sorted(glob.glob("/root/reference/work/data/guitar_bass/*/*.mid"))
+        glob.glob(os.path.join(repo, "work/data/guitar_bass/*/*.mid")))
     if len(sys.argv) > 1:
         midi_in = sys.argv[1]
     elif corpus:

@@ -1,5 +1,5 @@
-"""musicstyletransfer_tpu: a TPU-native (JAX/XLA/Pallas/pjit) MIDI music
-style-transfer framework.
+"""musicstyletransfer_tpu: a JAX MIDI music style-transfer framework that
+runs on NVIDIA GPUs and on the CPU (the package name is historical).
 
 Capability parity target: slyforce/MusicStyleTransfer (see SURVEY.md).
 The architecture is idiomatic JAX, not a translation:
@@ -8,16 +8,21 @@ The architecture is idiomatic JAX, not a translation:
                   (reference: music_style_transfer/MIDIUtil/*).
 - ``data``      — corpus loading, tensorization, static-shape batching
                   (reference: VarAutoEncoder/data.py).
-- ``models``    — class-conditional sequence-VAE transformer (flax.linen)
-                  (reference: VarAutoEncoder/model.py, transformer.py).
-- ``ops``       — Pallas TPU kernels for the hot paths.
-- ``parallel``  — jax.sharding mesh / pjit partitioning rules.
+- ``models``    — class-conditional sequence-VAE transformer as parameter
+                  pytrees + functions (reference: VarAutoEncoder/model.py,
+                  transformer.py); the GAN family.
+- ``ops``       — attention (cuDNN fused attention on the GPU via
+                  jax.nn.dot_product_attention) and ring attention.
+- ``parallel``  — jax.sharding mesh / partitioning rules, pipeline,
+                  multi-process layer.
 - ``training``  — losses, metrics, fused jitted train step, trainer loop,
                   checkpointing (reference: trainer.py, loss.py, metrics.py).
 - ``inference`` — on-device autoregressive decoding (lax.while_loop + KV
-                  cache), style transfer, samplers (reference: sampler.py).
+                  cache), style transfer, samplers, serving (reference:
+                  sampler.py).
 - ``cli``       — argparse surface and entry points (reference: config.py,
                   main.py).
+- ``hardware``  — the GPU-or-fail device gate and published peak rates.
 """
 
 __version__ = "0.1.0"

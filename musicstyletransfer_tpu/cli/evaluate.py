@@ -75,10 +75,9 @@ def evaluate(model, params, dataset, kl_weight: float = 1.0,
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     from ..utils import (
-        configure_jax_cache, pin_local_cpu, respect_platforms_env,
+        configure_jax_cache, pin_local_cpu,
     )
 
-    respect_platforms_env()
     configure_jax_cache()
     if args.cpu:
         pin_local_cpu()

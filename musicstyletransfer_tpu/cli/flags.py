@@ -1,9 +1,9 @@
 """Argparse surface matching the reference flag names.
 
 Reference: VarAutoEncoder/config.py:1-75. Flags, grouping, defaults and the
-``parse_known_args`` behavior are preserved; TPU-era additions are grouped
-under 'TPU'. ``--gpu`` is accepted for CLI compatibility and ignored
-(device selection is JAX's; see the TPU group).
+``parse_known_args`` behavior are preserved (so flags of removed options
+are ignored); additions are grouped under 'Extensions'. ``--gpu`` is
+accepted for CLI compatibility and ignored (device selection is JAX's).
 """
 
 from __future__ import annotations
@@ -78,85 +78,77 @@ def build_parser() -> argparse.ArgumentParser:
     misc.add_argument("--visualize-samples", action="store_true")
     misc.add_argument("--verbose", action="store_true")
 
-    tpu = parser.add_argument_group("TPU")
-    tpu.add_argument(
+    ext = parser.add_argument_group("Extensions")
+    ext.add_argument(
         "--tp", type=int, default=1,
         help="tensor-parallel ways over the device mesh's 'model' axis",
     )
-    tpu.add_argument(
+    ext.add_argument(
         "--dtype", choices=["bfloat16", "float32"], default="bfloat16",
         help="activation compute dtype (params stay float32)",
     )
-    tpu.add_argument("--logdir", type=str, default="/tmp/out",
+    ext.add_argument("--logdir", type=str, default="/tmp/out",
                      help="TensorBoard logdir (reference hardcodes /tmp/out)")
-    tpu.add_argument("--seed", type=int, default=0)
-    tpu.add_argument("--cpu", action="store_true",
+    ext.add_argument("--seed", type=int, default=0)
+    ext.add_argument("--cpu", action="store_true",
                      help="force CPU devices (tests/dev)")
-    tpu.add_argument("--use-flash-attention", action="store_true",
-                     help="Pallas fused attention in the transformer stacks")
-    tpu.add_argument("--norm-scheme", choices=["post", "pre"],
+    ext.add_argument("--norm-scheme", choices=["post", "pre"],
                      default="post",
                      help="residual-norm placement: 'post' is the "
                           "reference's post-LN block; 'pre' is the "
                           "modern pre-LN block whose backward flows "
                           "through an identity residual path (stable at "
                           "the wide config where post-LN's backward "
-                          "measurably runs away; BASELINE.md)")
-    tpu.add_argument("--attention-core-xla-backward", action="store_true",
-                     help="route the short-T attention core's backward "
-                          "through XLA einsums instead of the Pallas "
-                          "backward kernel (overflow-robust at extreme "
-                          "gradient spikes; see BASELINE.md wide NaN "
-                          "post-mortem)")
-    tpu.add_argument("--prefetch", type=int, default=2,
+                          "measurably runs away)")
+    ext.add_argument("--prefetch", type=int, default=2,
                      help="host->device input prefetch depth (0 disables)")
-    tpu.add_argument("--grad-accum-steps", type=int, default=1,
+    ext.add_argument("--grad-accum-steps", type=int, default=1,
                      help="gradient accumulation micro-steps")
-    tpu.add_argument("--steps-per-dispatch", type=int, default=1,
+    ext.add_argument("--steps-per-dispatch", type=int, default=1,
                      help="train steps fused into one dispatched program "
                           "(lax.scan); amortizes host dispatch on small "
                           "configs — semantics identical, ticks snap to "
                           "dispatch boundaries")
-    tpu.add_argument("--log-param-grad-norms", action="store_true",
+    ext.add_argument("--log-param-grad-norms", action="store_true",
                      help="per-parameter gradient-norm TB scalars")
-    tpu.add_argument("--profile-dir", type=str, default=None,
+    ext.add_argument("--profile-dir", type=str, default=None,
                      help="write a jax.profiler trace of steps 10-20 here")
-    tpu.add_argument("--temperature", type=float, default=1.0,
+    ext.add_argument("--temperature", type=float, default=1.0,
                      help="sampling temperature for ancestral decoding")
-    tpu.add_argument("--top-k", type=int, default=0,
+    ext.add_argument("--top-k", type=int, default=0,
                      help="restrict sampling to the k most likely tokens "
                           "(0 = off)")
-    tpu.add_argument("--top-p", type=float, default=0.0,
+    ext.add_argument("--top-p", type=float, default=0.0,
                      help="nucleus sampling: smallest token set with "
                           "cumulative probability >= p (0 = off)")
-    tpu.add_argument("--kl-anneal-steps", type=int, default=0,
+    ext.add_argument("--kl-anneal-steps", type=int, default=0,
                      help="linear KL warmup steps (0 = constant weight)")
-    tpu.add_argument("--free-bits", type=float, default=0.0,
+    ext.add_argument("--free-bits", type=float, default=0.0,
                      help="per-dimension KL floor (posterior-collapse guard)")
-    tpu.add_argument("--remat", action="store_true",
+    ext.add_argument("--remat", action="store_true",
                      help="rematerialize transformer layers in backward")
-    tpu.add_argument("--ring-attention", action="store_true",
+    ext.add_argument("--ring-attention", action="store_true",
                      help="sequence-parallel ring attention: shard the time "
                           "axis over the mesh's model axis and rotate K/V "
                           "chunks via ppermute (with --tp N carrying the "
                           "ring; any max-seq-len works — the time axis is "
                           "padded to the ring internally)")
-    tpu.add_argument("--keep-checkpoints", type=int, default=0,
+    ext.add_argument("--keep-checkpoints", type=int, default=0,
                      help="retain only the newest N checkpoints (0 = all)")
-    tpu.add_argument("--gen-health-rows", type=int, default=8,
+    ext.add_argument("--gen-health-rows", type=int, default=8,
                      help="per-checkpoint generation-health probe: "
                           "style-transfer this many validation rows into "
                           "every class and log termination rate + mean "
                           "generated length (teacher-forced CE misses "
                           "decode collapse; 0 disables)")
-    tpu.add_argument("--rng-impl", default="rbg",
+    ext.add_argument("--rng-impl", default="rbg",
                      choices=["rbg", "unsafe_rbg", "threefry2x32"],
-                     help="training PRNG; rbg = TPU hardware RNG (1.6x "
-                          "faster scaled-config steps), threefry2x32 = "
+                     help="training PRNG; rbg = XLA RngBitGenerator "
+                          "(cheap dropout masks), threefry2x32 = "
                           "cross-platform bit-reproducible")
-    tpu.add_argument("--length-penalty", type=float, default=0.0,
+    ext.add_argument("--length-penalty", type=float, default=0.0,
                      help="beam-search length normalization alpha (0 = off)")
-    tpu.add_argument("--class-conditioning",
+    ext.add_argument("--class-conditioning",
                      choices=["initial", "per_step"], default="initial",
                      help="decoder class conditioning: 'initial' = only the "
                           "prepended conditioning state (reference "
@@ -175,7 +167,10 @@ def build_parser() -> argparse.ArgumentParser:
     dist.add_argument("--dist-process-id", type=int, default=0)
     dist.add_argument("--dist-num-cpu-devices", type=int, default=None,
                       help="virtual CPU devices per process (CPU fleets "
-                           "only; inert on TPU pods)")
+                           "only; inert on GPUs)")
+    dist.add_argument("--dist-gpus-per-host", type=int, default=None,
+                      help="processes (one per card) on each GPU host; "
+                           "default: every process on one host")
     return parser
 
 

@@ -56,7 +56,7 @@ def build_gan_parser() -> argparse.ArgumentParser:
     train.add_argument("--r1-gamma", type=float, default=0.1,
                        help="R1 gradient-penalty weight on real inputs. "
                             "Default 0.1 — the measured sweet spot "
-                            "(BASELINE.md sweep: dense output AND the "
+                            "(sweep: dense output AND the "
                             "sharpest class separation at 14k steps; the "
                             "unregularized run collapses there). "
                             "--parity-gan or 0 turns it off.")
@@ -67,7 +67,7 @@ def build_gan_parser() -> argparse.ArgumentParser:
                             "only pins the reconstructed surface, not "
                             "measured behavior — the default diverges "
                             "deliberately because unregularized training "
-                            "self-destructs (BASELINE.md GAN table).")
+                            "self-destructs).")
 
     misc = parser.add_argument_group("Misc")
     misc.add_argument("--checkpoint-frequency", type=int, default=5000)
@@ -84,16 +84,16 @@ def build_gan_parser() -> argparse.ArgumentParser:
     misc.add_argument("--checkpoint", "-c", type=int, default=-1,
                       help="checkpoint index for --generate (-1 = latest)")
 
-    tpu = parser.add_argument_group("TPU")
-    tpu.add_argument("--dtype", choices=["bfloat16", "float32"],
+    ext = parser.add_argument_group("Extensions")
+    ext.add_argument("--dtype", choices=["bfloat16", "float32"],
                      default="bfloat16")
-    tpu.add_argument("--seed", type=int, default=0)
-    tpu.add_argument("--cpu", action="store_true",
+    ext.add_argument("--seed", type=int, default=0)
+    ext.add_argument("--cpu", action="store_true",
                      help="force CPU devices (tests/dev)")
-    tpu.add_argument("--temperature", type=float, default=1.0)
-    tpu.add_argument("--num-samples", type=int, default=8,
+    ext.add_argument("--temperature", type=float, default=1.0)
+    ext.add_argument("--num-samples", type=int, default=8,
                      help="generated MIDIs per class at each sampling tick")
-    tpu.add_argument("--logdir", type=str, default=None,
+    ext.add_argument("--logdir", type=str, default=None,
                      help="TensorBoard logdir for GAN scalars")
     return parser
 
@@ -199,9 +199,8 @@ def generate_only(args) -> None:
 def main(argv=None) -> None:
     args = get_gan_config(argv)
 
-    from ..utils import configure_jax_cache, respect_platforms_env
+    from ..utils import configure_jax_cache
 
-    respect_platforms_env()
     configure_jax_cache()
     if args.cpu:
         from ..utils import pin_local_cpu
@@ -234,7 +233,7 @@ def main(argv=None) -> None:
         args.max_seq_len,
     )
     print("Using GAN configuration:")
-    print(config.to_yaml())
+    print(config.to_json())
 
     trainer = GANTrainer(config, create_gan_train_config(args),
                          out_samples=args.out_samples)

@@ -38,10 +38,7 @@ def create_model_config(args, dataset) -> ModelConfig:
                 num_layers=args.e_n_layers,
                 vocab_size=dataset.num_tokens(),
                 num_heads=args.e_num_heads,
-                use_flash_attention=args.use_flash_attention,
-                attention_core_xla_backward=getattr(
-                    args, "attention_core_xla_backward", False),
-                norm_scheme=getattr(args, "norm_scheme", "post"),
+                norm_scheme=args.norm_scheme,
                 remat=args.remat,
                 ring_attention=args.ring_attention,
                 sequence_sharding=args.ring_attention,
@@ -57,10 +54,7 @@ def create_model_config(args, dataset) -> ModelConfig:
                 num_layers=args.d_n_layers,
                 vocab_size=dataset.num_tokens(),
                 num_heads=args.e_num_heads,
-                use_flash_attention=args.use_flash_attention,
-                attention_core_xla_backward=getattr(
-                    args, "attention_core_xla_backward", False),
-                norm_scheme=getattr(args, "norm_scheme", "post"),
+                norm_scheme=args.norm_scheme,
                 remat=args.remat,
                 ring_attention=args.ring_attention,
                 sequence_sharding=args.ring_attention,
@@ -69,7 +63,7 @@ def create_model_config(args, dataset) -> ModelConfig:
             num_classes=dataset.num_classes(),
             output_dim=dataset.num_tokens(),
             decoder_type=args.decoder_type,
-            class_conditioning=getattr(args, "class_conditioning", "initial"),
+            class_conditioning=args.class_conditioning,
             lstm_config=(
                 LSTMConfig(
                     n_layers=args.d_n_layers,
@@ -184,13 +178,9 @@ def main_toy(args, epochs: int = 20000) -> None:
 def main(argv=None) -> None:
     args = get_config(argv)
 
-    from ..utils import configure_jax_cache, respect_platforms_env
+    from ..utils import configure_jax_cache
 
-    respect_platforms_env()
-    configure_jax_cache(
-        suffix=(f"-proc{args.dist_process_id}" if args.dist_coordinator
-                else "")
-    )
+    configure_jax_cache()
 
     if args.dist_coordinator:
         # Multi-process mode: must run before any backend is touched.
@@ -201,6 +191,7 @@ def main(argv=None) -> None:
             num_processes=args.dist_num_processes,
             process_id=args.dist_process_id,
             num_cpu_devices=args.dist_num_cpu_devices,
+            gpus_per_host=args.dist_gpus_per_host,
         )
 
     _maybe_pin_cpu(args)
@@ -237,7 +228,7 @@ def main(argv=None) -> None:
     config = create_model_config(args, train_dataset)
     config.save(os.path.join(args.model_output, "config"))
     print("Using configuration:")
-    print(config.to_yaml())
+    print(config.to_json())
 
     model = make_model(config)
     params = init_params(model, jax.random.key(args.seed),

@@ -14,13 +14,12 @@ from .flags import get_config
 
 
 def _setup_jax(args) -> None:
-    """Honor JAX_PLATFORMS, enable the compile cache, optional CPU pin
+    """Enable the compile cache, optional CPU pin
     (--cpu pins the default device without dropping other backends)."""
     from ..utils import (
-        configure_jax_cache, pin_local_cpu, respect_platforms_env,
+        configure_jax_cache, pin_local_cpu,
     )
 
-    respect_platforms_env()
     configure_jax_cache()
     if getattr(args, "cpu", False):
         pin_local_cpu()

@@ -64,8 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "engine admits requests between decode segments "
                         "instead of between micro-batches — matches the "
                         "micro-batch loop's throughput at moderate load "
-                        "with lower median request latency (measured in "
-                        "BASELINE.md)")
+                        "with lower median request latency")
     p.add_argument("--slots", type=int, default=128,
                    help="--streaming: concurrent generation lanes "
                         "(throughput scales with slots while the harvest "
@@ -76,8 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--admit-size", type=int, default=0,
                    help="--streaming: max (request x class) units encoded "
                         "into free slots per cycle; 0 = full width "
-                        "(= --slots, the measured overload-safe default "
-                        "— BASELINE.md round-5 overload curve)")
+                        "(= --slots, the measured overload-safe default)")
     p.add_argument("--max-queue", type=int, default=0,
                    help="--streaming: bound on the host request queue; at "
                         "the bound new requests are SHED with an immediate "
@@ -217,10 +215,9 @@ def serve_http(svc: StyleTransferService, host: str, port: int):
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     from ..utils import (
-        configure_jax_cache, pin_local_cpu, respect_platforms_env,
+        configure_jax_cache, pin_local_cpu,
     )
 
-    respect_platforms_env()
     configure_jax_cache()
     if args.cpu:
         pin_local_cpu()

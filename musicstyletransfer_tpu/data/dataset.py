@@ -1,7 +1,7 @@
 """Datasets and the tensorizer: tokenized melodies -> static-shape batches.
 
 Reference: VarAutoEncoder/data.py:42-223 (Dataset, ToyData, MelodyDataset,
-load_dataset). TPU-first divergences from the reference, all documented:
+load_dataset). Divergences from the reference, all documented:
 
 - **Static shapes.** Batches are always ``(batch_size, max_seq_len + 1)``.
   The reference trims each batch to its longest sequence (data.py:196-198);

@@ -4,7 +4,7 @@ with device compute.
 The reference's input path is synchronous host work inside the hot loop
 (data.py:181-198 per-batch preprocessing). Here a background thread stages
 upcoming batches (optionally already placed on the mesh's data axis) in a
-small queue, so the accelerator never waits on the host — the TPU-idiomatic
+small queue, so the accelerator never waits on the host — the usual
 double-buffer (SURVEY.md §7 stage 8).
 """
 

@@ -15,20 +15,15 @@ hypothesis and cache reordering.
 from __future__ import annotations
 
 import functools
-import logging
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..midi.vocab import EOS_ID, PAD_ID, SOS_ID
 from ..models.vae import StyleVAE
 
 _NEG_INF = -1e30  # filtered-out logits (avoids inf-inf NaNs in softmax)
-
-_logger = logging.getLogger(__name__)
-_fused_switch_logged = False
 
 
 class _SampleLoopState(NamedTuple):
@@ -42,9 +37,7 @@ class _SampleLoopState(NamedTuple):
 
 def _encode_deterministic(model: StyleVAE, params, tokens, seq_lens, classes):
     """z = mu: deterministic encode at inference (reference: sampler.py:145-151)."""
-    mu, _ = model.apply(
-        {"params": params}, tokens, seq_lens, classes, method=StyleVAE.encode
-    )
+    mu, _ = model.encode(params, tokens, seq_lens, classes)
     return mu
 
 
@@ -72,44 +65,8 @@ def _filter_logits(logits: jax.Array, top_k: int, top_p: float) -> jax.Array:
     return logits
 
 
-def _fused_eligible(model: StyleVAE, batch: int, max_len: int,
-                    top_k: int, top_p: float, greedy: bool) -> bool:
-    """Auto-select the fused Pallas decode kernel (ops/fused_decode.py):
-    TPU backend, transformer decoder, VMEM budget OK (top-k/top-p support
-    filtering runs in-kernel via its bisection pass, which the budget
-    accounts for). Trace-time decision — all inputs are static under jit."""
-    from ..ops.flash_attention import should_interpret
-    from ..ops.fused_decode import supports_fused_decode
-
-    if should_interpret():
-        return False  # Mosaic only compiles for TPU
-    # max_grid=2: beyond two sequential batch tiles the XLA loop's
-    # big-batch matmuls win (measured; see supports_fused_decode).
-    eligible = supports_fused_decode(
-        model.config, batch, max_len, max_grid=2,
-        mode="greedy" if greedy else "sample",
-        filtered=not greedy and (top_k > 0 or top_p > 0.0),
-    )
-    if eligible and not greedy:
-        # The fused kernel samples with the TPU hardware PRNG — same
-        # distribution, different draws than jax.random.categorical under
-        # the same key. Say so once, so CPU-vs-TPU eval comparisons don't
-        # chase a phantom nondeterminism bug (happens at trace time only).
-        global _fused_switch_logged
-        if not _fused_switch_logged:
-            _fused_switch_logged = True
-            _logger.info(
-                "decode auto-selected the fused Pallas kernel: sampling "
-                "uses the TPU hardware PRNG (key-deterministic per seed, "
-                "but not bit-identical to jax.random.categorical); pass "
-                "use_fused=False for the XLA sampler"
-            )
-    return eligible
-
-
 @functools.partial(jax.jit, static_argnums=(0, 5),
-                   static_argnames=("max_len", "top_k", "top_p", "greedy",
-                                    "use_fused"))
+                   static_argnames=("max_len", "top_k", "top_p", "greedy"))
 def sample_sequences(
     model: StyleVAE,
     params,
@@ -122,7 +79,6 @@ def sample_sequences(
     top_k: int = 0,
     top_p: float = 0.0,
     greedy: bool = False,
-    use_fused: Optional[bool] = None,
 ) -> Tuple[jax.Array, jax.Array]:
     """Encode + ancestral multinomial decode, fully on device.
 
@@ -138,13 +94,11 @@ def sample_sequences(
     """
     z = _encode_deterministic(model, params, tokens, seq_lens, classes)
     return decode_sampled(model, params, z, classes, max_len, rng, temperature,
-                          top_k=top_k, top_p=top_p, greedy=greedy,
-                          use_fused=use_fused)
+                          top_k=top_k, top_p=top_p, greedy=greedy)
 
 
 @functools.partial(jax.jit, static_argnums=(0, 4),
-                   static_argnames=("max_len", "top_k", "top_p", "greedy",
-                                    "use_fused"))
+                   static_argnames=("max_len", "top_k", "top_p", "greedy"))
 def decode_sampled(
     model: StyleVAE,
     params,
@@ -156,38 +110,14 @@ def decode_sampled(
     top_k: int = 0,
     top_p: float = 0.0,
     greedy: bool = False,
-    use_fused: Optional[bool] = None,
 ) -> Tuple[jax.Array, jax.Array]:
     """Ancestral multinomial decode from (z, classes); ``temperature``
     scales the logits before sampling (1.0 = reference behavior);
     ``top_k``/``top_p`` restrict the support (see _filter_logits);
     ``greedy=True`` takes the argmax instead of sampling.
-
-    On TPU, eligible configs (see _fused_eligible) run the whole loop as
-    ONE Pallas kernel; set ``use_fused`` to force either path. The fused
-    sampler uses the TPU hardware PRNG — statistically equivalent draws,
-    not bit-identical to ``jax.random.categorical`` under the same key.
     """
     B = z.shape[0]
-    if use_fused is None:
-        use_fused = _fused_eligible(model, B, max_len, top_k, top_p, greedy)
-    if use_fused:
-        from ..ops.flash_attention import should_interpret
-        from ..ops.fused_decode import fused_decode
-
-        x0 = model.apply(
-            {"params": params}, z, classes, method=StyleVAE.decode_init
-        )
-        seed = jax.random.randint(rng, (), 0, np.iinfo(np.int32).max)
-        return fused_decode(
-            model.config, params, x0, max_len, seed, temperature,
-            mode="greedy" if greedy else "sample",
-            interpret=should_interpret(),
-            top_k=0 if greedy else top_k, top_p=0.0 if greedy else top_p,
-        )
-    cache = model.apply(
-        {"params": params}, z, classes, max_len + 1, method=StyleVAE.decode_prefill
-    )
+    cache = model.decode_prefill(params, z, classes, max_len + 1)
     seqs = jnp.full((B, max_len), PAD_ID, jnp.int32).at[:, 0].set(SOS_ID)
 
     def cond(st: _SampleLoopState):
@@ -195,10 +125,8 @@ def decode_sampled(
 
     def body(st: _SampleLoopState) -> _SampleLoopState:
         last = jax.lax.dynamic_slice_in_dim(st.seqs, st.t - 1, 1, axis=1)[:, 0]
-        logits, cache = model.apply(
-            {"params": params}, last, st.cache, st.t, classes,
-            method=StyleVAE.decode_step,
-        )
+        logits, cache = model.decode_step(params, last, st.cache, st.t,
+                                          classes)
         rng, key = jax.random.split(st.rng)
         filtered = _filter_logits(logits / temperature, top_k, top_p)
         if greedy:
@@ -269,35 +197,6 @@ class _BeamLoopState(NamedTuple):
     done: jax.Array  # [B*K]
 
 
-def _reorder_rows_mxu(sel: jax.Array, c: jax.Array) -> jax.Array:
-    """Permute rows of c [N, ...] by the one-hot selection matrix sel [N, N].
-
-    A row gather (``jnp.take(c, src, axis=0)``) over the KV cache is the
-    beam loop's dominant cost on TPU — measured 38.5 of 45 ms at the
-    flagship config (B=32, K=4, 130 steps; scripts/beam-profile.py):
-    sublane-axis gathers run at ~57 GB/s against an ~800 GB/s chip. The
-    same permutation as a one-hot MXU matmul runs the whole beam step
-    near its forward-cost floor (45 -> ~10 ms).
-
-    Exactness: every output row is 1.0 * source row summed with zeros —
-    exact for bf16 operands accumulated in f32, and kept exact for f32
-    caches by forcing Precision.HIGHEST (TPU f32 matmuls otherwise
-    truncate through one-pass bf16). One caveat vs the gather: a
-    non-finite cache entry poisons its whole column (0 * inf = NaN in
-    every output row) instead of only the hypotheses that select it —
-    acceptable because any non-finite cache means the decode is already
-    garbage; do not "fix" it with an isfinite mask that would hide the
-    corruption."""
-    flat = c.reshape(c.shape[0], -1)
-    out = jax.lax.dot_general(
-        sel.astype(c.dtype), flat,
-        (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32,
-    )
-    return out.astype(c.dtype).reshape(c.shape)
-
-
 @functools.partial(jax.jit, static_argnums=(0, 5, 6, 7),
                    static_argnames=("max_len", "beam_size",
                                     "length_penalty"))
@@ -342,10 +241,7 @@ def decode_beam(
 
     z_rep = jnp.repeat(z, K, axis=0)  # [B*K, latent]
     classes_rep = jnp.repeat(classes, K, axis=0)
-    cache = model.apply(
-        {"params": params}, z_rep, classes_rep, max_len + 1,
-        method=StyleVAE.decode_prefill,
-    )
+    cache = model.decode_prefill(params, z_rep, classes_rep, max_len + 1)
     seqs = jnp.full((B * K, max_len), PAD_ID, jnp.int32).at[:, 0].set(SOS_ID)
     # Only beam 0 is live initially so identical expansions don't tie.
     scores = jnp.where(
@@ -358,10 +254,8 @@ def decode_beam(
 
     def body(st: _BeamLoopState) -> _BeamLoopState:
         last = jax.lax.dynamic_slice_in_dim(st.seqs, st.t - 1, 1, axis=1)[:, 0]
-        logits, cache = model.apply(
-            {"params": params}, last, st.cache, st.t, classes_rep,
-            method=StyleVAE.decode_step,
-        )
+        logits, cache = model.decode_step(params, last, st.cache, st.t,
+                                          classes_rep)
         nll = -jax.nn.log_softmax(logits, axis=-1)  # [B*K, V]
         # Finished hypotheses may only extend with PAD at no cost.
         pad_only = jnp.full((V,), jnp.inf).at[PAD_ID].set(0.0)
@@ -378,23 +272,7 @@ def decode_beam(
         seqs = jax.lax.dynamic_update_slice(
             seqs, word_idx.reshape(B * K, 1), (0, st.t)
         )
-        # Cache rows ride the MXU on TPU (see _reorder_rows_mxu); the tiny
-        # seqs / done gathers above stay jnp.take (int32, measured noise).
-        # On CPU (the test mesh / non-TPU fallback) there is no systolic
-        # array to exploit and the O(N^2) matmul would just burn N-fold
-        # FLOPs over the O(N) gather — trace-time backend switch, same
-        # idiom as _fused_eligible.
-        from ..ops.flash_attention import should_interpret
-
-        if should_interpret():
-            cache = jax.tree.map(
-                lambda c: jnp.take(c, flat_src, axis=0), cache
-            )
-        else:
-            sel = jax.nn.one_hot(flat_src, B * K, dtype=jnp.float32)
-            cache = jax.tree.map(
-                functools.partial(_reorder_rows_mxu, sel), cache
-            )
+        cache = jax.tree.map(lambda c: jnp.take(c, flat_src, axis=0), cache)
         done = jnp.take(st.done, flat_src, axis=0) | (
             word_idx.reshape(B * K) == EOS_ID
         )

@@ -1,12 +1,11 @@
 """Multi-style micro-batched transfer service: continuous encode/swap/decode.
 
-BASELINE.json config #5 ("multi-style micro-batched transfer service:
-continuous encode/swap/decode on a v5e slice"). Requests (MIDI bytes or
+Continuous encode/swap/decode for many styles at once. Requests (MIDI bytes or
 token arrays) are collected into fixed-shape micro-batches — filled up to
 ``batch_size`` or flushed after ``max_wait_ms`` — and served by ONE jitted
 fused call per batch (encode + decode every target class). Fixed shapes
 mean exactly one compilation; partial batches are padded with the first
-request (TPU static-shape idiom) and the padding rows discarded.
+request (static-shape idiom) and the padding rows discarded.
 
 Programmatic use:
 
@@ -63,8 +62,7 @@ class ServiceStats:
     """Thread-safe serving counters: request latency (enqueue -> callback),
     batch fill, and queue depth at batch formation.
 
-    VERDICT r02 item 4: the continuous-service claim (BASELINE config #5)
-    had no p99/queue-depth instrumentation. Latency samples ride a bounded
+    Latency samples ride a bounded
     deque so a long-lived service never grows host memory."""
 
     def __init__(self, max_samples: int = 65536):
@@ -143,7 +141,7 @@ class StyleTransferService:
         sharded over its data axis (params placed per the TP rules once,
         here). None = single-device fused path.
 
-        ``buckets``: optional ascending sequence-length buckets (the TPU
+        ``buckets``: optional ascending sequence-length buckets (the
         length-bucketing idiom, SURVEY §5.7): each micro-batch runs at the
         smallest bucket >= its longest request instead of always padding
         to ``max_seq_len``. One compiled program per bucket (compiled on
@@ -357,12 +355,12 @@ class StyleTransferService:
         deliver. A request's latency is queue wait + device + detokenize.
 
         Double-buffering (dispatch batch N+1 before delivering batch N)
-        was implemented and MEASURED on v5e at 75% of capacity — and
-        rejected: host work per batch (~10 ms fetch+detokenize) is small
-        against the batch cycle (~60 ms), so there is nothing worth
-        hiding, and every overlapped cycle taxes each request one extra
-        batch turn (unconditional overlap p50 78 -> 181 ms; queue-gated
-        adaptive overlap still 125 ms). The _dispatch/_finish split this
+        was implemented and measured at 75% of capacity — and rejected:
+        host work per batch (fetch + detokenize) was small against the
+        batch cycle, so there was nothing worth hiding, and every
+        overlapped cycle taxed each request one extra batch turn (p50
+        more than doubled). Not re-measured on the GPU. The
+        _dispatch/_finish split this
         experiment introduced is kept — it is the right seam if a larger
         model (bigger device share) ever changes the trade."""
         import logging

@@ -1,42 +1,31 @@
 """Mesh-sharded batched inference: style transfer over a device mesh.
 
 The reference serves from a single ``mx.Context`` (sampler.py:273-292); its
-only scaling story is a bigger host loop. The TPU-native equivalent is the
-same single-program decode loop (inference/decode.py) compiled by GSPMD over
-a ``jax.sharding.Mesh``:
+only scaling story is a bigger host loop. Here the same single-program
+decode loop (inference/decode.py) is compiled by GSPMD over a
+``jax.sharding.Mesh``:
 
-- the request batch is sharded over the mesh's "data" axis (each chip
+- the request batch is sharded over the mesh's "data" axis (each device
   decodes its slice of the batch; rows are independent, so data-parallel
   decode is exact — no collectives in the hot loop);
 - parameters follow the training-time tensor-parallel rules
   (parallel/mesh.py): replicated under pure DP, Megatron-style
   column/row-split under tp>1, in which case XLA inserts one psum per
-  attention/FFN block over ICI.
+  attention/FFN block.
 
-The fused single-chip Pallas decode kernel (ops/fused_decode.py) is not
-GSPMD-partitionable, but decode rows are independent, so on a PURE
-data-parallel mesh (tp=1) the kernel runs per shard under ``shard_map``:
-encode + conditioning compile under GSPMD, then every chip runs the whole
-sampling loop on its batch slice in one Mosaic program (``use_fused`` —
-auto on TPU when the per-shard batch fits the kernel's VMEM budget).
-Under tp>1 or when the kernel is not eligible, the sharded path runs the
-XLA ``lax.while_loop`` decode. Batches are padded to a multiple of the
-data-axis size with copies of row 0 (static shapes; padding rows are
-dropped from the result).
+Batches are padded to a multiple of the data-axis size with copies of
+row 0 (static shapes; padding rows are dropped from the result).
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..parallel.mesh import (
     AXIS_DATA,
-    AXIS_MODEL,
     batch_sharding,
     shard_params,
     use_mesh,
@@ -62,89 +51,6 @@ def prepare_params(params, mesh) -> any:
     return shard_params(params, mesh)
 
 
-def _fused_shard_eligible(model, mesh, per_shard_batch: int, max_len: int,
-                          top_k: int, top_p: float) -> bool:
-    """Auto-select the per-shard fused kernel: pure-DP mesh, TPU backend,
-    kernel supports the per-shard batch (same gates as the single-device
-    auto path in decode._fused_eligible)."""
-    from ..ops.flash_attention import should_interpret
-    from ..ops.fused_decode import supports_fused_decode
-
-    if mesh.shape.get(AXIS_MODEL, 1) != 1:
-        return False  # kernel holds full-width weights; DP only
-    if should_interpret():
-        return False
-    return supports_fused_decode(
-        model.config, per_shard_batch, max_len, max_grid=2,
-        filtered=top_k > 0 or top_p > 0.0,
-    )
-
-
-@functools.lru_cache(maxsize=32)
-def _build_fused_sharded(model, mesh, max_len: int, mode: str,
-                         interpret: bool, top_k: int = 0, top_p: float = 0.0):
-    """Build (once per static signature) the jitted encode+shard_map'd
-    fused-decode program. Cached so the serving hot path does not retrace
-    and re-lower the Mosaic kernel per request — model and mesh are both
-    hashable, same keying discipline as decode.py's jitted entry points."""
-    from jax.sharding import PartitionSpec as P
-
-    from ..models.vae import StyleVAE
-    from ..ops.fused_decode import fused_decode
-
-    config = model.config
-
-    def per_shard(x0_s, params_s, seed_s, temperature):
-        # seed_s is this shard's OWN host-drawn seed (in_spec P(data)):
-        # structurally distinct streams per shard, so the kernel's
-        # seed+program_id tile decorrelation cannot collide across shards
-        # the way a seed+axis_index offset would at grid 2.
-        return fused_decode(
-            config, params_s, x0_s, max_len, seed_s[0], temperature,
-            mode=mode, interpret=interpret, top_k=top_k, top_p=top_p,
-        )
-
-    decode_sharded = jax.shard_map(
-        per_shard,
-        mesh=mesh,
-        in_specs=(P(AXIS_DATA), P(), P(AXIS_DATA), P()),
-        out_specs=(P(AXIS_DATA), P(AXIS_DATA)),
-        check_vma=False,  # Pallas calls don't carry varying-axis info
-    )
-
-    @jax.jit
-    def run(params, tokens, seq_lens, classes, seeds, temperature):
-        mu, _ = model.apply(
-            {"params": params}, tokens, seq_lens, classes,
-            method=StyleVAE.encode,
-        )
-        x0 = model.apply(
-            {"params": params}, mu, classes, method=StyleVAE.decode_init
-        )
-        return decode_sharded(x0, params, seeds, temperature)
-
-    return run
-
-
-def _run_fused_sharded(
-    model, params, tokens, seq_lens, classes, max_len, rng, mesh,
-    temperature, greedy, interpret, top_k=0, top_p=0.0,
-):
-    """Encode under GSPMD, then shard_map the fused decode kernel over the
-    data axis: one jitted program, every chip runs the whole sampling loop
-    on its batch slice in VMEM."""
-    run = _build_fused_sharded(
-        model, mesh, max_len, "greedy" if greedy else "sample", interpret,
-        0 if greedy else top_k, 0.0 if greedy else top_p,
-    )
-    dp = mesh.shape[AXIS_DATA]
-    seeds = jax.random.randint(
-        rng, (dp,), 0, np.iinfo(np.int32).max, dtype=jnp.int32
-    )
-    return run(params, tokens, seq_lens, classes, seeds,
-               jnp.asarray(temperature, jnp.float32))
-
-
 def sharded_sample_sequences(
     model,
     params,
@@ -159,8 +65,6 @@ def sharded_sample_sequences(
     top_p: float = 0.0,
     greedy: bool = False,
     params_on_mesh: bool = False,
-    use_fused: Optional[bool] = None,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """Encode + ancestral decode with the batch sharded over the data axis.
 
@@ -168,12 +72,6 @@ def sharded_sample_sequences(
     data-parallel result is identical to the single-device one; under tp>1
     the attention/FFN reductions are split across the model axis (same math,
     partitioned reduction order).
-
-    ``use_fused``: None = auto — on a pure-DP TPU mesh whose per-shard
-    batch fits the fused kernel's VMEM budget, the decode loop runs as the
-    single-Mosaic-program kernel per shard via shard_map (the multi-chip
-    version of the single-device fast path); otherwise the GSPMD-partitioned
-    XLA while_loop. ``interpret`` forces Pallas interpreter mode (CPU tests).
     """
     B = tokens.shape[0]
     dp = mesh.shape[AXIS_DATA]
@@ -189,29 +87,10 @@ def sharded_sample_sequences(
         jax.device_put(seq_lens, bs),
         jax.device_put(classes, bs),
     )
-    if use_fused is None:
-        use_fused = _fused_shard_eligible(
-            model, mesh, padded // dp, max_len, top_k, top_p
-        )
-    elif use_fused:
-        # Forced kernel path: reject arguments it cannot honor rather than
-        # silently diverging from the XLA path's semantics.
-        if mesh.shape.get(AXIS_MODEL, 1) != 1:
-            raise ValueError(
-                "use_fused=True requires a pure data-parallel mesh (tp=1); "
-                "the kernel holds full-width weights per chip"
-            )
-    if use_fused:
-        seqs, scores = _run_fused_sharded(
-            model, params, tokens, seq_lens, classes, max_len, rng, mesh,
-            temperature, greedy, interpret, top_k=top_k, top_p=top_p,
-        )
-        return seqs[:B], scores[:B]
     with use_mesh(mesh):
         seqs, scores = sample_sequences(
             model, params, tokens, seq_lens, classes, max_len, rng,
             temperature, top_k=top_k, top_p=top_p, greedy=greedy,
-            use_fused=False,
         )
     return seqs[:B], scores[:B]
 

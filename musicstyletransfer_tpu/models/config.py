@@ -1,59 +1,57 @@
-"""Config base + model configs with YAML round-trip persistence.
+"""Config base + model configs with JSON round-trip persistence.
 
 Reference: VarAutoEncoder/config.py:81-222 (Config with freeze + YAML tags +
 backward-compatible default fill-in) and the model config classes at
 model.py:11-54 / transformer.py:8-21.
 
-Design: plain dataclasses registered with tagged YAML representers
-(``!ModelConfig`` etc., same sidecar format family as the reference).
-Loading fills missing fields from dataclass defaults so old config files
-keep working (reference: config.py:105-115).
+Design: plain frozen dataclasses saved as JSON objects. Each object names
+its class under ``"__type__"`` (the role the reference's YAML tags play),
+so nested configs load back as their own classes. Loading fills missing
+fields from dataclass defaults and ignores unknown keys, so config files
+written by older versions keep working (reference: config.py:105-115).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 from typing import Any, Dict, Optional, Type, TypeVar
-
-import yaml
 
 _T = TypeVar("_T", bound="Config")
 _REGISTRY: Dict[str, Type["Config"]] = {}
-
-
-class _ConfigLoader(yaml.SafeLoader):
-    pass
-
-
-class _ConfigDumper(yaml.SafeDumper):
-    pass
+_TYPE_KEY = "__type__"
 
 
 def register_config(cls: Type[_T]) -> Type[_T]:
-    """Class decorator: register ``!ClassName`` YAML tag for a Config dataclass."""
-    tag = "!" + cls.__name__
-    _REGISTRY[tag] = cls
+    """Class decorator: make a Config dataclass loadable by its name."""
+    _REGISTRY[cls.__name__] = cls
+    return cls
 
-    def _represent(dumper: yaml.Dumper, obj: Any) -> yaml.Node:
-        state = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
-        return dumper.represent_mapping(tag, state)
 
-    def _construct(loader: yaml.Loader, node: yaml.Node) -> Any:
-        state = loader.construct_mapping(node, deep=True)
+def _to_json_obj(obj: Any) -> Any:
+    if isinstance(obj, Config):
+        out = {_TYPE_KEY: type(obj).__name__}
+        for f in dataclasses.fields(obj):
+            out[f.name] = _to_json_obj(getattr(obj, f.name))
+        return out
+    return obj
+
+
+def _from_json_obj(obj: Any) -> Any:
+    if isinstance(obj, dict) and _TYPE_KEY in obj:
+        cls = _REGISTRY[obj[_TYPE_KEY]]
         known = {f.name for f in dataclasses.fields(cls)}
         # Backward-compatible default fill-in: ignore unknown keys, let
         # dataclass defaults cover missing ones (reference: config.py:105-115).
-        return cls(**{k: v for k, v in state.items() if k in known})
-
-    _ConfigDumper.add_representer(cls, _represent)
-    _ConfigLoader.add_constructor(tag, _construct)
-    return cls
+        return cls(**{k: _from_json_obj(v) for k, v in obj.items()
+                      if k in known})
+    return obj
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Base for YAML-persistable configs (reference: config.py:90-222)."""
+    """Base for JSON-persistable configs (reference: config.py:90-222)."""
 
     def copy(self: _T, **overrides: Any) -> _T:
         new = copy.deepcopy(self)
@@ -63,15 +61,22 @@ class Config:
 
     def save(self, fname: str) -> None:
         with open(fname, "w") as out:
-            yaml.dump(self, out, Dumper=_ConfigDumper, default_flow_style=False)
+            out.write(self.to_json() + "\n")
 
     @staticmethod
     def load(fname: str) -> "Config":
         with open(fname) as inp:
-            return yaml.load(inp, Loader=_ConfigLoader)
+            text = inp.read()
+        if text.lstrip().startswith("!"):
+            raise ValueError(
+                f"{fname} is a YAML config from an older version; configs "
+                "are JSON now (one object per config class, named under "
+                f"{_TYPE_KEY!r})"
+            )
+        return _from_json_obj(json.loads(text))
 
-    def to_yaml(self) -> str:
-        return yaml.dump(self, Dumper=_ConfigDumper, default_flow_style=False)
+    def to_json(self) -> str:
+        return json.dumps(_to_json_obj(self), indent=2, sort_keys=True)
 
 
 @register_config
@@ -84,37 +89,9 @@ class TransformerConfig(Config):
     num_layers: int = 1
     num_heads: int = 8
     vocab_size: Optional[int] = None
-    # TPU-native additions (defaults preserve reference behavior):
+    # Additions (defaults preserve reference behavior):
     ffn_multiplier: int = 4
     max_positions: int = 10000  # positional table size (transformer.py:217)
-    use_flash_attention: bool = False  # Pallas fused attention on TPU
-    # Flash engages only at sequence lengths where it beats XLA's fused
-    # attention (measured fwd+bwd on v5e, causal bf16 D=64: 0.90x at T=512,
-    # 1.12x at 1024, 1.51x at 2048, 2.12x at 4096); below this the dense
-    # path runs even with use_flash_attention=True. Set 0 to force flash.
-    flash_min_seq_len: int = 1024
-    # Fused short-T attention core (ops/attention_core.py): consumes the
-    # QKV projection's output in its natural interleaved layout and keeps
-    # the [T, T] scores VMEM-resident — no HBM score tensor, no layout
-    # transposes, near-free custom-VJP boundary. Engages for
-    # attention_core_min_seq_len <= T < flash_min_seq_len when
-    # use_flash_attention is on and no mesh is live (GSPMD cannot
-    # partition the kernel over batch). 0 disables (the XLA materializing
-    # path runs instead). Default measured on v5e (scripts/core-ab.py,
-    # 3 interleaved pairs, round 4): full train step 1.22x at the scaled
-    # config (13.34 -> 10.94 ms) and 1.14x at the wide config (17.96 ->
-    # 15.81 ms) — the regime where the streaming flash kernel LOST 1.4x
-    # in-model (BASELINE.md "Attention at T<=512").
-    attention_core_min_seq_len: int = 256
-    # Route the core's custom-VJP backward through plain XLA einsums
-    # (same recompute-from-lse math) instead of the Pallas backward
-    # kernel. Overflow-robust at extreme cotangent magnitudes: the wide
-    # config's transient training spikes reach ~1e19 (forward healthy),
-    # where the Pallas backward emits non-finite dqkv and the XLA
-    # formulation stays finite (BASELINE.md round-5 wide NaN
-    # post-mortem). Costs part of the core's backward fusion win; the
-    # wide training script enables it.
-    attention_core_xla_backward: bool = False
     # Residual-norm placement. "post" (default) is the reference's
     # post-LN block: x = LN(x + sublayer(x)) (transformer.py:129-159).
     # "pre" is the modern pre-LN block (x = x + sublayer(LN(x)) with one
@@ -122,8 +99,8 @@ class TransformerConfig(Config):
     # path instead of a product of LN Jacobians, which is what stops the
     # wide config's runaway backward explosion — forward healthy while
     # gradient norms grew 1e4 -> 2e8 -> overflow over ~150 steps under
-    # post-LN, three attempts in a row (BASELINE.md round-5 wide NaN
-    # post-mortem). The wide training preset uses "pre".
+    # post-LN, three attempts in a row. The wide training preset uses
+    # "pre".
     norm_scheme: str = "post"
     # Sequence parallelism: constrain activations to shard the time axis
     # over the mesh's "model" axis between blocks (GSPMD inserts the
@@ -132,14 +109,14 @@ class TransformerConfig(Config):
     # Ring attention (ops/ring_attention.py): compute attention itself
     # sequence-parallel — K/V chunks rotate over the mesh's "model" axis via
     # ppermute, no device holds full K/V. Engages when a mesh with a >1
-    # "model" axis is active and T divides it; otherwise falls through to
-    # flash/dense. Intended for long-sequence configs together with
-    # sequence_sharding (the model axis then carries time, not heads — do
-    # not combine with tensor parallelism on the same axis).
+    # "model" axis is active; otherwise the single-device attention runs.
+    # Intended for long-sequence configs together with sequence_sharding
+    # (the model axis then carries time, not heads — do not combine with
+    # tensor parallelism on the same axis).
     ring_attention: bool = False
     # Rematerialize each transformer layer in backward (jax.checkpoint):
     # trades recompute FLOPs for activation memory — the right trade for
-    # long-sequence training on TPU where HBM is the constraint.
+    # long-sequence training where device memory is the constraint.
     remat: bool = False
 
 
@@ -191,7 +168,7 @@ class DecoderConfig(Config):
     #                the latent's source information at every free-bits
     #                operating point, while the GAN family's per-step class
     #                input measured 1.6x better pitch fit than
-    #                initial-state-only (BASELINE.md round-3/4). Same
+    #                initial-state-only. Same
     #                parameter tree (reuses class_emb) — checkpoints are
     #                structurally identical; the sidecar config selects the
     #                behavior. Transformer decoder only.
@@ -205,5 +182,5 @@ class ModelConfig(Config):
 
     encoder_config: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     decoder_config: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
-    # Compute dtype for activations on TPU; params stay float32.
+    # Compute dtype for activations; params stay float32.
     dtype: str = "bfloat16"

@@ -1,4 +1,4 @@
-"""Class-conditional sequence GAN for MIDI generation (TPU-native).
+"""Class-conditional sequence GAN for MIDI generation.
 
 The reference repo ships a GAN launch script (`scripts/train.sh:5` invokes
 ``music_style_transfer.GAN.main``) but the GAN module itself is absent from
@@ -9,21 +9,21 @@ the repository — only its artifacts survive: the flag surface in train.sh
 smoothing + negative-label downweighting (reference loss.py:27-80, plus the
 --label-smoothing / --negative-label-downscaling flags at config.py:52-53).
 This module reconstructs that capability from those artifacts as an
-original TPU-first design; where the reference leaves no evidence, the
-design notes below state the choice.
+original design; where the reference leaves no evidence, the design notes
+below state the choice.
 
 Design (idiomatic JAX, everything under jit):
 
 - **Generator**: per-step noise + class-conditional initial LSTM state,
-  rolled out with ``nn.scan`` (ONE fused XLA while-style program — no
+  rolled out with ``lax.scan`` (ONE fused XLA while-style program — no
   Python in the loop). At each step the previous token enters as an
   embedding; in ``soft`` mode that embedding is the softmax distribution
-  contracted with the embedding table (a dense MXU matmul — the standard
+  contracted with the embedding table (a dense matmul — the standard
   continuous relaxation that keeps the generator differentiable end to
   end), in ``hard`` mode it is the embedding of a sampled token id
   (inference). Both modes share one parameter set.
 - **Discriminator**: token *distributions* (one-hot for real data, soft
-  for generated) contracted with an embedding table — again a dense MXU
+  for generated) contracted with an embedding table — again a dense
   matmul, which makes real and fake inputs the same dtype/shape so one
   compiled program serves both — plus a class embedding, an LSTM stack,
   and a per-timestep real/fake logit head. Per-timestep discrimination
@@ -37,12 +37,13 @@ Design (idiomatic JAX, everything under jit):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from . import layers
 from .config import Config, register_config
 
 
@@ -75,7 +76,7 @@ class DiscriminatorConfig(Config):
     num_classes: int = 2
     input_dim: int = 293
     # Projection conditioning (Miyato & Koyama): makes the real/fake
-    # boundary class-dependent. Measured on guitar_bass (BASELINE.md):
+    # boundary class-dependent. Measured on guitar_bass:
     # the only configuration where generated classes actually separate
     # (octave JS own 0.142 vs other 0.176); additive-input-only
     # conditioning reads flat (0.194 vs 0.195) but keeps denser note
@@ -95,123 +96,136 @@ class GANConfig(Config):
     dtype: str = "bfloat16"
 
 
-class _GeneratorCell(nn.Module):
-    """One rollout step; lifted over time by nn.scan (params broadcast)."""
+@dataclasses.dataclass(frozen=True)
+class Generator:
+    """noise [B, L, noise_dim] + classes [B] -> (logits [B, L, V], tokens [B, L]).
+
+    Parameters: ``class2state`` and ``class2emb`` embeddings, and the
+    rollout step's ``cell/{noise2emb, lstm{i}, out, token_emb}``."""
 
     config: GeneratorConfig
-    dtype: Any
-    hard: bool
+    dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, carry, x):
+    def init(self, key: jax.Array) -> layers.Params:
         c = self.config
+        keys = jax.random.split(key, 5 + c.n_layers)
+        cell = {
+            "noise2emb": layers.dense_params(keys[0], c.noise_dim, c.emb_dim),
+            "out": layers.dense_params(keys[1], c.hidden_dim, c.output_dim),
+            "token_emb": layers.embed_params(keys[2], c.output_dim, c.emb_dim),
+        }
+        for i in range(c.n_layers):
+            in_dim = c.emb_dim if i == 0 else c.hidden_dim
+            cell[f"lstm{i}"] = layers.lstm_cell_params(keys[5 + i], in_dim,
+                                                       c.hidden_dim)
+        return {
+            "class2state": layers.embed_params(keys[3], c.num_classes,
+                                               2 * c.hidden_dim),
+            "class2emb": layers.embed_params(keys[4], c.num_classes,
+                                             c.emb_dim),
+            "cell": cell,
+        }
+
+    def _step(self, cp, hard: bool, carry, x):
+        """One rollout step (the body of the ``lax.scan``)."""
+        c, dt = self.config, self.dtype
         carries, prev_emb, class_emb, temperature = carry
         noise_t, key_t = x
-
         # Class conditioning at EVERY step, not just the initial state:
         # over a 64-step rollout the initial (h0, c0) washes out, while the
         # discriminator sees its class embedding at every position —
-        # asymmetric conditioning measurably fails to separate classes
-        # (BASELINE.md's GAN note).
-        x_in = (
-            nn.Dense(c.emb_dim, dtype=self.dtype, name="noise2emb")(noise_t)
-            + prev_emb
-            + class_emb
-        )
-        h = x_in
+        # asymmetric conditioning measurably fails to separate classes.
+        h = layers.dense(cp["noise2emb"], noise_t, dt) + prev_emb + class_emb
         new_carries = []
         for i in range(c.n_layers):
-            cell = nn.OptimizedLSTMCell(
-                c.hidden_dim, dtype=self.dtype, name=f"lstm{i}"
-            )
-            carry_i, h = cell(carries[i], h)
+            carry_i, h = layers.lstm_cell(cp[f"lstm{i}"], carries[i], h, dt)
             new_carries.append(carry_i)
-        logits = nn.Dense(c.output_dim, dtype=jnp.float32, name="out")(
-            h.astype(jnp.float32)
-        )
+        logits = layers.dense(cp["out"], h.astype(jnp.float32), jnp.float32)
         scaled = logits / temperature
-
-        token_emb = nn.Embed(
-            c.output_dim, c.emb_dim, dtype=self.dtype, name="token_emb"
-        )
         tokens_t = jax.random.categorical(key_t, scaled)
-        if self.hard:
-            next_emb = token_emb(tokens_t)
+        if hard:
+            next_emb = layers.embed(cp["token_emb"], tokens_t, dt)
         else:
-            soft = jax.nn.softmax(scaled).astype(self.dtype)
-            # Soft embedding: distribution @ table — differentiable, MXU.
-            next_emb = soft @ jnp.asarray(token_emb.embedding, self.dtype)
+            soft = jax.nn.softmax(scaled).astype(dt)
+            # Soft embedding: distribution @ table — differentiable.
+            next_emb = soft @ cp["token_emb"]["embedding"].astype(dt)
         return (
             (tuple(new_carries), next_emb, class_emb, temperature),
             (logits, tokens_t),
         )
 
-
-class Generator(nn.Module):
-    """noise [B, L, noise_dim] + classes [B] -> (logits [B, L, V], tokens [B, L])."""
-
-    config: GeneratorConfig
-    dtype: Any = jnp.float32
-
-    @nn.compact
     def __call__(
         self,
+        p,
         noise: jax.Array,
         classes: jax.Array,
         key: jax.Array,
         hard: bool = False,
         temperature: float = 1.0,
     ) -> Tuple[jax.Array, jax.Array]:
-        c = self.config
+        c, dt = self.config, self.dtype
         B, L, _ = noise.shape
         # Class-conditional initial state: per-class learned (h0, c0),
         # repeated across layers (the same conditioning idiom as the VAE's
         # LSTM decoder, models/lstm.py).
-        hc = nn.Embed(c.num_classes, 2 * c.hidden_dim, dtype=self.dtype,
-                      name="class2state")(classes)
+        hc = layers.embed(p["class2state"], classes, dt)
         h0, c0 = jnp.split(hc, 2, axis=-1)
         carries0 = tuple((c0, h0) for _ in range(c.n_layers))
-        prev0 = jnp.zeros((B, c.emb_dim), self.dtype)
+        prev0 = jnp.zeros((B, c.emb_dim), dt)
         # Per-step class conditioning (constant through the scan carry).
-        cemb = nn.Embed(c.num_classes, c.emb_dim, dtype=self.dtype,
-                        name="class2emb")(classes)
+        cemb = layers.embed(p["class2emb"], classes, dt)
         temp = jnp.asarray(temperature, jnp.float32)
-
-        cell = nn.scan(
-            _GeneratorCell,
-            variable_broadcast="params",
-            split_rngs={"params": False},
-            in_axes=0,
-            out_axes=0,
-        )(config=c, dtype=self.dtype, hard=hard, name="cell")
-
         xs = (jnp.swapaxes(noise, 0, 1), jax.random.split(key, L))
-        _, (logits, tokens) = cell((carries0, prev0, cemb, temp), xs)
+        step = functools.partial(self._step, p["cell"], hard)
+        _, (logits, tokens) = jax.lax.scan(step, (carries0, prev0, cemb, temp),
+                                           xs)
         return jnp.swapaxes(logits, 0, 1), jnp.swapaxes(tokens, 0, 1)
 
 
-class Discriminator(nn.Module):
-    """Token distributions [B, L, V] + classes [B] -> per-step logits [B, L]."""
+@dataclasses.dataclass(frozen=True)
+class Discriminator:
+    """Token distributions [B, L, V] + classes [B] -> per-step logits [B, L].
+
+    Parameters: ``token_emb`` (a bias-free dense over the vocab axis),
+    ``class_emb``, one LSTM cell per layer ``OptimizedLSTMCell_{i}``,
+    ``head`` and (projection conditioning) ``class_proj``."""
 
     config: DiscriminatorConfig
     dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, token_dists: jax.Array, classes: jax.Array) -> jax.Array:
+    def init(self, key: jax.Array) -> layers.Params:
         c = self.config
-        # Embedding as a Dense over the vocab axis: one MXU matmul serving
-        # both one-hot (real) and soft (generated) inputs.
-        x = nn.Dense(c.emb_dim, use_bias=False, dtype=self.dtype,
-                     name="token_emb")(token_dists.astype(self.dtype))
-        x = x + nn.Embed(c.num_classes, c.emb_dim, dtype=self.dtype,
-                         name="class_emb")(classes)[:, None, :]
+        keys = jax.random.split(key, 4 + c.n_layers)
+        p = {
+            "token_emb": layers.dense_params(keys[0], c.input_dim, c.emb_dim,
+                                             use_bias=False),
+            "class_emb": layers.embed_params(keys[1], c.num_classes,
+                                             c.emb_dim),
+            "head": layers.dense_params(keys[2], c.hidden_dim, 1),
+        }
+        if c.projection:
+            p["class_proj"] = layers.embed_params(keys[3], c.num_classes,
+                                                  c.hidden_dim)
         for i in range(c.n_layers):
-            x = nn.RNN(
-                nn.OptimizedLSTMCell(c.hidden_dim, dtype=self.dtype),
-                name=f"rnn{i}",
-            )(x)
+            in_dim = c.emb_dim if i == 0 else c.hidden_dim
+            p[f"OptimizedLSTMCell_{i}"] = layers.lstm_cell_params(
+                keys[4 + i], in_dim, c.hidden_dim)
+        return p
+
+    def __call__(self, p, token_dists: jax.Array,
+                 classes: jax.Array) -> jax.Array:
+        c, dt = self.config, self.dtype
+        # Embedding as a dense over the vocab axis: one matmul serving
+        # both one-hot (real) and soft (generated) inputs.
+        x = layers.dense(p["token_emb"], token_dists, dt)
+        x = x + layers.embed(p["class_emb"], classes, dt)[:, None, :]
+        B = x.shape[0]
+        for i in range(c.n_layers):
+            zeros = jnp.zeros((B, c.hidden_dim), jnp.float32)
+            _, x = layers.lstm_scan(p[f"OptimizedLSTMCell_{i}"],
+                                    (zeros, zeros), x, dt)
         h = x.astype(jnp.float32)
-        logits = nn.Dense(1, dtype=jnp.float32, name="head")(h)[..., 0]
+        logits = layers.dense(p["head"], h, jnp.float32)[..., 0]
         if c.projection:
             # Projection conditioning (Miyato & Koyama, cGANs with
             # projection discriminator): logit_t = head(h_t) + <h_t,
@@ -219,8 +233,7 @@ class Discriminator(nn.Module):
             # discriminate without ever USING the class, so the generator
             # feels no pressure to separate classes; the inner-product
             # term makes the real/fake boundary itself class-dependent.
-            proj = nn.Embed(c.num_classes, c.hidden_dim, dtype=jnp.float32,
-                            name="class_proj")(classes)
+            proj = layers.embed(p["class_proj"], classes, jnp.float32)
             logits = logits + jnp.einsum("blh,bh->bl", h, proj)
         return logits
 
@@ -237,16 +250,9 @@ def make_discriminator(config: GANConfig) -> Discriminator:
 
 def init_gan_params(config: GANConfig, rng: jax.Array):
     """(generator_params, discriminator_params) from one seed."""
-    g_rng, d_rng, roll_rng = jax.random.split(rng, 3)
-    gen, disc = make_generator(config), make_discriminator(config)
-    gc = config.generator_config
-    noise = jnp.zeros((1, gc.max_seq_len, gc.noise_dim), jnp.float32)
-    classes = jnp.zeros((1,), jnp.int32)
-    g_params = gen.init(g_rng, noise, classes, roll_rng, hard=False)["params"]
-    dists = jnp.zeros(
-        (1, gc.max_seq_len, config.discriminator_config.input_dim), jnp.float32
-    )
-    d_params = disc.init(d_rng, dists, classes)["params"]
+    g_rng, d_rng = jax.random.split(rng)
+    g_params = jax.jit(make_generator(config).init)(g_rng)
+    d_params = jax.jit(make_discriminator(config).init)(d_rng)
     return g_params, d_params
 
 
@@ -263,8 +269,6 @@ def generate_tokens(
     noise = jax.random.normal(
         noise_key, (classes.shape[0], c.max_seq_len, c.noise_dim), jnp.float32
     )
-    _, tokens = gen.apply(
-        {"params": g_params}, noise, classes, roll_key, hard=True,
-        temperature=temperature,
-    )
+    _, tokens = gen(g_params, noise, classes, roll_key, hard=True,
+                    temperature=temperature)
     return tokens

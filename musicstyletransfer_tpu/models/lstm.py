@@ -10,59 +10,68 @@ training output aligns with the labels directly.
 Presents the same (``__call__``, ``prefill``, ``step_token``) surface as the
 transformer ``VAEDecoder`` so the jitted decode loop (inference/decode.py)
 works unchanged — the "cache" pytree is the tuple of per-layer LSTM
-carries.
+carries. Parameters: ``latent2hid``, ``class_emb``, ``token_emb``,
+``rnn{i}/cell`` (one LSTM cell per layer) and ``output_layer``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+import dataclasses
+from typing import Any, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from . import layers
 from .config import DecoderConfig, LSTMConfig
 
 
-class LSTMDecoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class LSTMDecoder:
     config: DecoderConfig
     dtype: Any = jnp.float32
 
-    def setup(self) -> None:
-        c = self.config
-        lc = c.lstm_config or LSTMConfig()
-        self.lstm_cfg = lc
-        H = lc.hidden_dim
-        self.latent2hid = nn.Dense(2 * H, dtype=self.dtype, name="latent2hid")
-        self.class_emb = nn.Embed(c.num_classes, 2 * H, dtype=self.dtype,
-                                  name="class_emb")
-        self.token_emb = nn.Embed(c.output_dim, H, dtype=self.dtype,
-                                  name="token_emb")
-        self.rnns = [
-            nn.RNN(nn.OptimizedLSTMCell(H, dtype=self.dtype), name=f"rnn{i}")
-            for i in range(lc.n_layers)
-        ]
-        self.drop = nn.Dropout(lc.dropout)
-        self.output_layer = nn.Dense(c.output_dim, dtype=jnp.float32,
-                                     name="output_layer")
+    @property
+    def lstm_cfg(self) -> LSTMConfig:
+        return self.config.lstm_config or LSTMConfig()
 
-    def _initial_carries(self, z: jax.Array, classes: jax.Array):
+    def init(self, key: jax.Array) -> layers.Params:
+        c, lc = self.config, self.lstm_cfg
+        H = lc.hidden_dim
+        keys = jax.random.split(key, 4 + lc.n_layers)
+        p = {
+            "latent2hid": layers.dense_params(keys[0], c.latent_dim, 2 * H),
+            "class_emb": layers.embed_params(keys[1], c.num_classes, 2 * H),
+            "token_emb": layers.embed_params(keys[2], c.output_dim, H),
+            "output_layer": layers.dense_params(keys[3], H, c.output_dim),
+        }
+        for i in range(lc.n_layers):
+            p[f"rnn{i}"] = {"cell": layers.lstm_cell_params(keys[4 + i], H, H)}
+        return p
+
+    def _initial_carries(self, p, z: jax.Array, classes: jax.Array):
         """Per-layer (c, h) carries from latent+class (model.py:155-167).
 
         The reference splits the 2H transform into [h, c] and repeats the
         same pair for every layer.
         """
-        transform = self.latent2hid(z.astype(self.dtype)) + self.class_emb(classes)
+        transform = (layers.dense(p["latent2hid"], z, self.dtype)
+                     + layers.embed(p["class_emb"], classes, self.dtype))
         h0, c0 = jnp.split(transform, 2, axis=-1)
         return tuple((c0, h0) for _ in range(self.lstm_cfg.n_layers))
 
+    def _logits(self, p, h: jax.Array) -> jax.Array:
+        return layers.dense(p["output_layer"], h.astype(jnp.float32),
+                            jnp.float32)
+
     def __call__(
         self,
+        p,
         tokens: jax.Array,
         seq_lens: jax.Array,
         z: jax.Array,
         classes: jax.Array,
-        train: bool,
+        rng: Optional[jax.Array] = None,
     ) -> jax.Array:
         """tokens: SOS-prefixed [B, L+1]; returns logits [B, L+1, V].
 
@@ -70,31 +79,35 @@ class LSTMDecoder(nn.Module):
         are processed and masked by the loss.
         """
         del seq_lens
-        x = self.token_emb(tokens)
-        carries = self._initial_carries(z, classes)
-        for i, rnn in enumerate(self.rnns):
-            x = rnn(x, initial_carry=carries[i])
-            if i + 1 < len(self.rnns):
-                x = self.drop(x, deterministic=not train)
-        return self.output_layer(x.astype(jnp.float32))
+        n = self.lstm_cfg.n_layers
+        x = layers.embed(p["token_emb"], tokens, self.dtype)
+        carries = self._initial_carries(p, z, classes)
+        keys = layers.split_key(rng, n)
+        for i in range(n):
+            _, x = layers.lstm_scan(p[f"rnn{i}"]["cell"], carries[i], x,
+                                    self.dtype)
+            if i + 1 < n:
+                x = layers.dropout(x, self.lstm_cfg.dropout, keys[i])
+        return self._logits(p, x)
 
     # --- incremental decoding (same surface as VAEDecoder) --------------
 
-    def prefill(self, z: jax.Array, classes: jax.Array, max_len: int):
+    def prefill(self, p, z: jax.Array, classes: jax.Array, max_len: int):
         del max_len  # carries are O(1); no sequence-length cache needed
-        return self._initial_carries(z, classes)
+        return self._initial_carries(p, z, classes)
 
     def step_token(
-        self, token_t: jax.Array, cache, t: jax.Array, classes=None
+        self, p, token_t: jax.Array, cache, t: jax.Array, classes=None
     ) -> Tuple[jax.Array, Any]:
         # t: recurrent state carries all positional context. classes: the
-        # LSTM only supports initial-state conditioning (StyleVAE.setup
+        # LSTM only supports initial-state conditioning (StyleVAE.init
         # rejects per_step + lstm), so the argument is accepted for surface
         # uniformity with VAEDecoder.step_token and ignored.
         del t, classes
-        x = self.token_emb(token_t)
+        x = layers.embed(p["token_emb"], token_t, self.dtype)
         new_carries = []
-        for i, rnn in enumerate(self.rnns):
-            carry, x = rnn.cell(cache[i], x)
+        for i in range(self.lstm_cfg.n_layers):
+            carry, x = layers.lstm_cell(p[f"rnn{i}"]["cell"], cache[i], x,
+                                        self.dtype)
             new_carries.append(carry)
-        return self.output_layer(x.astype(jnp.float32)), tuple(new_carries)
+        return self._logits(p, x), tuple(new_carries)

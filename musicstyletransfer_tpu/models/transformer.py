@@ -1,9 +1,9 @@
-"""Transformer encoder/decoder stacks (flax.linen), TPU-first.
+"""Transformer encoder/decoder stacks as parameter pytrees plus functions.
 
 Reference: VarAutoEncoder/transformer.py:24-273. Behavioral divergences,
 chosen per SURVEY.md §7 (implement the evident intent, document the delta):
 
-- attention softmax is over the *key* axis with a real additive padding mask
+- attention softmax is over the *key* axis with a real padding mask
   (the reference normalizes over queries, making its pad mask a no-op —
   SURVEY.md §8.4);
 - the decoder applies a causal mask in training (the reference trains
@@ -19,17 +19,23 @@ sinusoidal positional table built with the reference's exponent formula
 (transformer.py:242-249) — here as explicit static-shape cache arrays
 updated via ``lax.dynamic_update_slice`` so the whole decode loop stays
 on-device inside one jitted ``lax.while_loop``.
+
+Each module is a frozen dataclass of static settings (hashable, so a model
+can be a static jit argument) with an ``init(key)`` that builds its
+parameter dict and apply methods that take that dict first. Dropout is
+active exactly when a PRNG key is passed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
+from . import layers
 from .config import TransformerConfig
 
 # Per-layer KV cache: (k, v) each [batch, max_len, num_heads, head_dim].
@@ -50,7 +56,8 @@ def positional_encodings(model_size: int, max_len: int) -> np.ndarray:
     return pos.astype(np.float32)
 
 
-class FeedForward(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class FeedForward:
     """4x-expansion ReLU FFN (reference DualFeedForward, transformer.py:24-46)."""
 
     model_size: int
@@ -58,169 +65,78 @@ class FeedForward(nn.Module):
     dropout: float
     dtype: Any = jnp.float32
 
-    def setup(self) -> None:
-        self.ff1 = nn.Dense(self.hidden_size, dtype=self.dtype, name="ff1")
-        self.ff2 = nn.Dense(self.model_size, dtype=self.dtype, name="ff2")
-        self.drop = nn.Dropout(self.dropout)
+    def init(self, key: jax.Array) -> layers.Params:
+        k1, k2 = jax.random.split(key)
+        return {
+            "ff1": layers.dense_params(k1, self.model_size, self.hidden_size),
+            "ff2": layers.dense_params(k2, self.hidden_size, self.model_size),
+        }
 
-    def __call__(self, x: jax.Array, train: bool) -> jax.Array:
-        x = nn.relu(self.ff1(x))
-        x = self.drop(x, deterministic=not train)
-        return self.ff2(x)
-
-
-class _ProjParams(nn.Module):
-    """Parameter twin of ``nn.Dense`` (same path, shapes, initializers) that
-    is never *called*: it only holds kernel/bias so the attention block can
-    concatenate the Q/K/V kernels into ONE ``[D, 3D]`` MXU dot at apply time
-    while the param tree — and with it every shipped checkpoint, the TP
-    sharding rules (parallel/mesh.py) and the fused-decode param packer —
-    stays bit-identical to the historical three-Dense layout."""
-
-    features: int
-    in_features: int
-
-    def setup(self) -> None:
-        self.kernel = self.param(
-            "kernel",
-            nn.initializers.lecun_normal(),
-            (self.in_features, self.features),
-            jnp.float32,
-        )
-        self.bias = self.param(
-            "bias", nn.initializers.zeros_init(), (self.features,), jnp.float32
-        )
+    def __call__(self, p, x: jax.Array,
+                 rng: Optional[jax.Array] = None) -> jax.Array:
+        x = jax.nn.relu(layers.dense(p["ff1"], x, self.dtype))
+        x = layers.dropout(x, self.dropout, rng)
+        return layers.dense(p["ff2"], x, self.dtype)
 
 
-class MultiHeadSelfAttention(nn.Module):
-    """Standard scaled-dot self-attention with batched train path and a
-    single-position cached step path (reference: transformer.py:49-126).
+@dataclasses.dataclass(frozen=True)
+class MultiHeadSelfAttention:
+    """Scaled-dot self-attention with a batched train path and cached
+    single-position step paths (reference: transformer.py:49-126).
 
-    With ``use_flash=True`` the batched path runs the Pallas fused kernel
-    (ops/flash_attention.py) — interpreter mode on CPU, compiled on TPU.
-    Requires prefix-contiguous key masks (which is what the pipeline
-    produces: PAD is always a suffix).
+    The batched path runs ops/attention.py (cuDNN fused attention on a GPU
+    in half precision). Keys must be prefix-masked (PAD is always a
+    suffix in this pipeline). Parameters: ``w_q``, ``w_k``, ``w_v``,
+    ``w_o``, each a dense ``{kernel [D, D], bias [D]}``.
     """
 
     model_size: int
     num_heads: int
     causal: bool = False
-    use_flash: bool = False
-    # Flash only pays off past this length (measured; see TransformerConfig).
-    flash_min_seq_len: int = 1024
-    # Below flash_min_seq_len the fused short-T core (ops/attention_core.py)
-    # takes the batched path instead of XLA, from this length up (measured;
-    # see TransformerConfig.attention_core_min_seq_len). 0 disables.
-    core_min_seq_len: int = 0
-    # Overflow-robust XLA backward for the core (see TransformerConfig).
-    core_xla_backward: bool = False
     use_ring: bool = False
+    sequence_sharding: bool = False
     dtype: Any = jnp.float32
 
-    def setup(self) -> None:
-        assert self.model_size % self.num_heads == 0
-        self.head_dim = self.model_size // self.num_heads
+    @property
+    def head_dim(self) -> int:
+        return self.model_size // self.num_heads
+
+    def init(self, key: jax.Array) -> layers.Params:
+        if self.model_size % self.num_heads:
+            raise ValueError(f"model_size {self.model_size} is not a "
+                             f"multiple of num_heads {self.num_heads}")
         D = self.model_size
-        self.w_q = _ProjParams(features=D, in_features=D, name="w_q")
-        self.w_k = _ProjParams(features=D, in_features=D, name="w_k")
-        self.w_v = _ProjParams(features=D, in_features=D, name="w_v")
-        self.w_o = nn.Dense(self.model_size, dtype=self.dtype, name="w_o")
+        keys = jax.random.split(key, 4)
+        return {name: layers.dense_params(k, D, D)
+                for name, k in zip(("w_q", "w_k", "w_v", "w_o"), keys)}
 
     def _heads(self, x: jax.Array) -> jax.Array:
         return x.reshape(*x.shape[:-1], self.num_heads, self.head_dim)
 
-    def _fused_qkv_ok(self) -> bool:
-        """The Q/K/V kernels are column-sharded ``(None, "model")`` under
-        tensor parallelism; an apply-time concat of three column-sharded
-        arrays would make GSPMD reshard them every step. Fuse only when no
-        live mesh has a >1 model axis."""
+    @staticmethod
+    def _model_axis() -> int:
         from ..parallel.mesh import AXIS_MODEL, current_mesh
 
         mesh = current_mesh()
-        return mesh is None or mesh.shape.get(AXIS_MODEL, 1) <= 1
+        return 1 if mesh is None else mesh.shape.get(AXIS_MODEL, 1)
 
-    def _qkv(self, x: jax.Array) -> Tuple[jax.Array, jax.Array, jax.Array]:
+    def _qkv(self, p, x: jax.Array) -> Tuple[jax.Array, jax.Array, jax.Array]:
         """Q/K/V projection. Single-device / dp meshes run ONE ``[D, 3D]``
-        dot (wide-model profile: three same-activation ``[D, D]`` dots
-        tile the MXU N dimension 3x worse and triple the matmul dispatches
-        fwd AND bwd — dX and dW each collapse to one dot too); tp>1 meshes
-        keep three dots so the column-sharded kernels never reshard."""
+        dot (three same-activation ``[D, D]`` dots triple the matmul
+        launches fwd AND bwd — dX and dW each collapse to one dot too);
+        tp>1 meshes keep three dots: the Q/K/V kernels are column-sharded
+        ``(None, "model")`` there, and an apply-time concat of three
+        column-sharded arrays would make GSPMD reshard them every step."""
         dt = self.dtype
-        xd = x.astype(dt)
-        if self._fused_qkv_ok():
-            w = jnp.concatenate(
-                [
-                    self.w_q.kernel.astype(dt),
-                    self.w_k.kernel.astype(dt),
-                    self.w_v.kernel.astype(dt),
-                ],
-                axis=1,
-            )
-            b = jnp.concatenate(
-                [
-                    self.w_q.bias.astype(dt),
-                    self.w_k.bias.astype(dt),
-                    self.w_v.bias.astype(dt),
-                ]
-            )
-            qkv = xd @ w + b
-            q, k, v = jnp.split(qkv, 3, axis=-1)
+        names = ("w_q", "w_k", "w_v")
+        if self._model_axis() <= 1:
+            w = jnp.concatenate([p[n]["kernel"].astype(dt) for n in names],
+                                axis=1)
+            b = jnp.concatenate([p[n]["bias"].astype(dt) for n in names])
+            q, k, v = jnp.split(x.astype(dt) @ w + b, 3, axis=-1)
             return q, k, v
-        proj = lambda p: xd @ p.kernel.astype(dt) + p.bias.astype(dt)  # noqa: E731
-        return proj(self.w_q), proj(self.w_k), proj(self.w_v)
-
-    def _qkv_interleaved(self, x: jax.Array) -> jax.Array:
-        """QKV projection emitting the per-head-interleaved layout the
-        fused attention core consumes: column group ``h`` of the output is
-        ``[q_h | k_h | v_h]``. The permutation happens on the WEIGHT side
-        (a [D, 3D] reshuffle, 4x smaller than the activation and hoisted
-        into the same fused matmul), so no activation-side transpose or
-        [B, H, T, hd] array ever materializes — the core kernel's whole
-        point (ops/attention_core.py docstring)."""
-        from ..ops.attention_core import interleave_qkv_weights
-
-        dt = self.dtype
-        w, b = interleave_qkv_weights(
-            self.w_q.kernel.astype(dt), self.w_q.bias.astype(dt),
-            self.w_k.kernel.astype(dt), self.w_k.bias.astype(dt),
-            self.w_v.kernel.astype(dt), self.w_v.bias.astype(dt),
-            self.num_heads, self.head_dim,
-        )
-        return x.astype(dt) @ w + b
-
-    def _core_eligible(self, x: jax.Array) -> bool:
-        """The fused short-T core engages in the window
-        [core_min_seq_len, min(flash_min_seq_len, MAX_CORE_SEQ_LEN)) when
-        Pallas attention is enabled, on mesh-free execution or a mesh whose
-        data axis divides the batch (then via shard_map — the mesh gate is
-        load-bearing: GSPMD cannot partition a raw pallas_call over batch
-        and silently REPLICATES it instead, measured as the output sharding
-        collapsing to PartitionSpec()). tp>1 additionally needs the model
-        axis to divide the heads (attention_core_tp slices complete heads
-        per shard). Ring (sequence-sharded) configs keep their time-sharded
-        path — the core holds the full [T, T] scores per shard, the
-        opposite memory contract."""
-        from ..ops.attention_core import MAX_CORE_SEQ_LEN
-        from ..parallel.mesh import AXIS_DATA, AXIS_MODEL, current_mesh
-
-        T = x.shape[1]
-        lo = self.core_min_seq_len
-        if not (
-            self.use_flash
-            and not self.use_ring
-            and 0 < lo <= T
-            and T < self.flash_min_seq_len
-            and T <= MAX_CORE_SEQ_LEN
-        ):
-            return False
-        mesh = current_mesh()
-        if mesh is None:
-            return True
-        tp = mesh.shape.get(AXIS_MODEL, 1)
-        return (
-            x.shape[0] % mesh.shape.get(AXIS_DATA, 1) == 0
-            and (tp <= 1 or self.num_heads % tp == 0)
-        )
+        q, k, v = (layers.dense(p[n], x, dt) for n in names)
+        return q, k, v
 
     def _ring_eligible(self, x: jax.Array) -> bool:
         """Ring attention engages on a live mesh with a >1 "model" axis and
@@ -230,62 +146,23 @@ class MultiHeadSelfAttention(nn.Module):
         otherwise)."""
         if not self.use_ring:
             return False
-        from ..parallel.mesh import AXIS_DATA, AXIS_MODEL, current_mesh
+        from ..parallel.mesh import AXIS_DATA, current_mesh
 
         mesh = current_mesh()
         return (
-            mesh is not None
-            and AXIS_MODEL in mesh.shape
-            and mesh.shape[AXIS_MODEL] > 1
+            self._model_axis() > 1
             and x.shape[0] % mesh.shape.get(AXIS_DATA, 1) == 0
         )
 
-    def __call__(self, x: jax.Array, key_mask: jax.Array) -> jax.Array:
+    def __call__(self, p, x: jax.Array, key_mask: jax.Array) -> jax.Array:
         """x: [B, T, D]; key_mask: [B, T] True at valid (non-PAD) keys."""
-        if self._core_eligible(x):
-            from ..ops.attention_core import (
-                attention_core,
-                attention_core_sharded,
-                attention_core_tp,
-            )
-            from ..ops.flash_attention import should_interpret
-            from ..parallel.mesh import AXIS_MODEL, current_mesh
+        from ..ops.attention import attention
 
-            key_lens = jnp.sum(key_mask.astype(jnp.int32), axis=-1)
-            mesh = current_mesh()
-            if mesh is None:
-                qkv = self._qkv_interleaved(x)
-                ctx = attention_core(
-                    qkv, key_lens, self.num_heads, self.causal, None,
-                    should_interpret(), self.core_xla_backward,
-                )
-            elif mesh.shape.get(AXIS_MODEL, 1) > 1:
-                # tp mesh: projection + interleave + kernel per head shard
-                # inside one shard_map (head-aligned weight slices).
-                dt = self.dtype
-                ctx = attention_core_tp(
-                    x.astype(dt),
-                    self.w_q.kernel.astype(dt), self.w_q.bias.astype(dt),
-                    self.w_k.kernel.astype(dt), self.w_k.bias.astype(dt),
-                    self.w_v.kernel.astype(dt), self.w_v.bias.astype(dt),
-                    key_lens, self.num_heads, self.head_dim, self.causal,
-                    interpret=should_interpret(),
-                    xla_backward=self.core_xla_backward,
-                )
-            else:  # pure-dp mesh: per-shard kernel via shard_map
-                qkv = self._qkv_interleaved(x)
-                ctx = attention_core_sharded(
-                    qkv, key_lens, self.num_heads, self.causal,
-                    interpret=should_interpret(),
-                    xla_backward=self.core_xla_backward,
-                )
-            return self.w_o(ctx)
-        q, k, v = self._qkv(x)
-        q, k, v = self._heads(q), self._heads(k), self._heads(v)
+        q, k, v = (self._heads(a) for a in self._qkv(p, x))
+        key_lens = jnp.sum(key_mask.astype(jnp.int32), axis=-1)
         if self._ring_eligible(x):
             from ..ops.ring_attention import ring_attention_sharded
 
-            key_lens = jnp.sum(key_mask.astype(jnp.int32), axis=-1)
             out = ring_attention_sharded(
                 q.transpose(0, 2, 1, 3),
                 k.transpose(0, 2, 1, 3),
@@ -293,37 +170,31 @@ class MultiHeadSelfAttention(nn.Module):
                 key_lens,
                 causal=self.causal,
             ).transpose(0, 2, 1, 3)
-        elif self.use_flash and x.shape[1] >= self.flash_min_seq_len:
-            from ..ops.flash_attention import flash_attention, should_interpret
-
-            interpret = should_interpret()
-            key_lens = jnp.sum(key_mask.astype(jnp.int32), axis=-1)
-            out = flash_attention(
-                q.transpose(0, 2, 1, 3),
-                k.transpose(0, 2, 1, 3),
-                v.transpose(0, 2, 1, 3),
-                key_lens,
-                self.causal,
-                None,
-                interpret,
-            ).transpose(0, 2, 1, 3)
         else:
-            bias = jnp.where(
-                key_mask[:, None, None, :].astype(bool), 0.0, _NEG_INF
-            )
-            if self.causal:
-                T = x.shape[1]
-                tri = jnp.tril(jnp.ones((T, T), dtype=bool))
-                bias = bias + jnp.where(tri[None, None], 0.0, _NEG_INF)
-            logits = jnp.einsum("bqhd,bkhd->bhqk", q, k) / jnp.sqrt(
-                jnp.asarray(self.head_dim, dtype=q.dtype)
-            )
-            probs = jax.nn.softmax(logits + bias.astype(logits.dtype), axis=-1)
-            out = jnp.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.w_o(out.reshape(*x.shape[:-1], self.model_size))
+            # Time-sharded activations (sequence parallelism on a model
+            # axis) must take XLA's lowering: cuDNN's partitioner refuses
+            # a sharded sequence dimension.
+            seq_sharded = self.sequence_sharding and self._model_axis() > 1
+            out = attention(q, k, v, key_lens, self.causal,
+                            implementation="xla" if seq_sharded else None)
+        out = out.reshape(*x.shape[:-1], self.model_size)
+        return layers.dense(p["w_o"], out, self.dtype)
+
+    def _cached_attend(self, p, q_t, cache_k, cache_v, valid):
+        """q_t: [S, H, hd]; valid: [S or 1, T] visible cache positions."""
+        logits = jnp.einsum("bhd,bkhd->bhk", q_t, cache_k) / jnp.sqrt(
+            jnp.asarray(self.head_dim, dtype=q_t.dtype)
+        )
+        logits = jnp.where(valid[:, None, :], logits, _NEG_INF)
+        probs = jax.nn.softmax(logits, axis=-1)
+        out = jnp.einsum("bhk,bkhd->bhd", probs, cache_v)
+        return layers.dense(p["w_o"], out.reshape(q_t.shape[0],
+                                                  self.model_size),
+                            self.dtype)
 
     def step_ragged(
-        self, x_t: jax.Array, cache_k: jax.Array, cache_v: jax.Array, t: jax.Array
+        self, p, x_t: jax.Array, cache_k: jax.Array, cache_v: jax.Array,
+        t: jax.Array,
     ) -> Tuple[jax.Array, jax.Array, jax.Array]:
         """Per-row cached decode step: row ``s`` sits at its own position
         ``t[s]`` (the continuous-batching engine's slots advance
@@ -332,176 +203,174 @@ class MultiHeadSelfAttention(nn.Module):
         x_t: [S, D]; t: [S] int32; cache_{k,v}: [S, T_max, H, hd]. Writes
         (k, v) at ``[s, t[s]]`` and attends over keys ``<= t[s]`` per row.
         The write is a vectorized one-hot select over the time axis rather
-        than a scatter: per-row dynamic indices lower to a scatter op whose
-        TPU expansion serializes rows, while the select is pure VPU traffic
-        (cache-sized, ~MBs — measured harmless at slot counts this engine
-        runs). Numerically identical to ``step`` when every row shares t:
-        stale cache positions beyond t[s] are masked to -inf before the
-        softmax, so their (arbitrary) contents multiply exact zeros.
+        than a per-row scatter. Numerically identical to ``step`` when
+        every row shares t: stale cache positions beyond t[s] are masked
+        before the softmax, so their (arbitrary) contents multiply exact
+        zeros.
         """
-        S = x_t.shape[0]
         T = cache_k.shape[1]
-        q_t, k_t, v_t = self._qkv(x_t)
+        q_t, k_t, v_t = self._qkv(p, x_t)
         k_t = self._heads(k_t)[:, None]  # [S, 1, H, hd]
         v_t = self._heads(v_t)[:, None]
-        q_t = self._heads(q_t)  # [S, H, hd]
         positions = jnp.arange(T)
         write = (positions[None, :] == t[:, None])[:, :, None, None]
         cache_k = jnp.where(write, k_t.astype(cache_k.dtype), cache_k)
         cache_v = jnp.where(write, v_t.astype(cache_v.dtype), cache_v)
-        logits = jnp.einsum("bhd,bkhd->bhk", q_t, cache_k) / jnp.sqrt(
-            jnp.asarray(self.head_dim, dtype=q_t.dtype)
-        )
         valid = positions[None, :] <= t[:, None]  # [S, T]
-        logits = jnp.where(valid[:, None, :], logits, _NEG_INF)
-        probs = jax.nn.softmax(logits, axis=-1)
-        out = jnp.einsum("bhk,bkhd->bhd", probs, cache_v)
-        return self.w_o(out.reshape(S, self.model_size)), cache_k, cache_v
+        out = self._cached_attend(p, self._heads(q_t), cache_k, cache_v,
+                                  valid)
+        return out, cache_k, cache_v
 
     def step(
-        self, x_t: jax.Array, cache_k: jax.Array, cache_v: jax.Array, t: jax.Array
+        self, p, x_t: jax.Array, cache_k: jax.Array, cache_v: jax.Array,
+        t: jax.Array,
     ) -> Tuple[jax.Array, jax.Array, jax.Array]:
         """One cached decode step.
 
         x_t: [B, D] input at position ``t``; cache_{k,v}: [B, T_max, H, hd].
         Returns (out [B, D], new_cache_k, new_cache_v).
         """
-        B = x_t.shape[0]
-        q_t, k_t, v_t = self._qkv(x_t)
+        q_t, k_t, v_t = self._qkv(p, x_t)
         k_t = self._heads(k_t)[:, None]  # [B, 1, H, hd]
         v_t = self._heads(v_t)[:, None]
-        q_t = self._heads(q_t)  # [B, H, hd]
         cache_k = jax.lax.dynamic_update_slice(
             cache_k, k_t.astype(cache_k.dtype), (0, t, 0, 0)
         )
         cache_v = jax.lax.dynamic_update_slice(
             cache_v, v_t.astype(cache_v.dtype), (0, t, 0, 0)
         )
-        logits = jnp.einsum("bhd,bkhd->bhk", q_t, cache_k) / jnp.sqrt(
-            jnp.asarray(self.head_dim, dtype=q_t.dtype)
-        )
         # Mask positions beyond t (cache slots not yet written).
-        valid = jnp.arange(cache_k.shape[1]) <= t
-        logits = jnp.where(valid[None, None, :], logits, _NEG_INF)
-        probs = jax.nn.softmax(logits, axis=-1)
-        out = jnp.einsum("bhk,bkhd->bhd", probs, cache_v)
-        return self.w_o(out.reshape(B, self.model_size)), cache_k, cache_v
+        valid = (jnp.arange(cache_k.shape[1]) <= t)[None, :]
+        out = self._cached_attend(p, self._heads(q_t), cache_k, cache_v,
+                                  valid)
+        return out, cache_k, cache_v
 
 
-class TransformerLayer(nn.Module):
-    """Post-LN residual block: self-attention + FFN
-    (reference encoder layer transformer.py:129-159; decoder layer
-    transformer.py:162-200 with its residual bug fixed)."""
+@dataclasses.dataclass(frozen=True)
+class TransformerLayer:
+    """Residual block: self-attention + FFN, post-LN (reference encoder
+    layer transformer.py:129-159; decoder layer transformer.py:162-200
+    with its residual bug fixed) or pre-LN (config.norm_scheme)."""
 
     config: TransformerConfig
     causal: bool = False
     dtype: Any = jnp.float32
 
-    def setup(self) -> None:
+    @property
+    def attention(self) -> MultiHeadSelfAttention:
         c = self.config
-        self.attention = MultiHeadSelfAttention(
+        return MultiHeadSelfAttention(
             model_size=c.model_size,
             num_heads=c.num_heads,
             causal=self.causal,
-            use_flash=c.use_flash_attention,
-            flash_min_seq_len=getattr(c, "flash_min_seq_len", 1024),
-            core_min_seq_len=getattr(c, "attention_core_min_seq_len", 0),
-            core_xla_backward=getattr(c, "attention_core_xla_backward",
-                                      False),
-            use_ring=getattr(c, "ring_attention", False),
+            use_ring=c.ring_attention,
+            sequence_sharding=c.sequence_sharding,
             dtype=self.dtype,
         )
-        self.ln1 = nn.LayerNorm(dtype=self.dtype, name="ln1")
-        self.ff = FeedForward(
+
+    @property
+    def ff(self) -> FeedForward:
+        c = self.config
+        return FeedForward(
             model_size=c.model_size,
             hidden_size=c.model_size * c.ffn_multiplier,
             dropout=c.dropout,
             dtype=self.dtype,
         )
-        self.ln2 = nn.LayerNorm(dtype=self.dtype, name="ln2")
-        self.drop = nn.Dropout(c.dropout)
 
     @property
     def _pre_ln(self) -> bool:
-        return getattr(self.config, "norm_scheme", "post") == "pre"
+        return self.config.norm_scheme == "pre"
 
-    def __call__(self, x: jax.Array, key_mask: jax.Array, train: bool) -> jax.Array:
-        if self._pre_ln:
-            att = self.attention(self.ln1(x), key_mask)
-            x = x + self.drop(att, deterministic=not train)
-            ff = self.ff(self.ln2(x), train)
-            return x + self.drop(ff, deterministic=not train)
-        att = self.attention(x, key_mask)
-        x = self.ln1(x + self.drop(att, deterministic=not train))
-        ff = self.ff(x, train)
-        x = self.ln2(x + self.drop(ff, deterministic=not train))
-        return x
+    def init(self, key: jax.Array) -> layers.Params:
+        k_att, k_ff = jax.random.split(key)
+        D = self.config.model_size
+        return {
+            "attention": self.attention.init(k_att),
+            "ln1": layers.layer_norm_params(D),
+            "ff": self.ff.init(k_ff),
+            "ln2": layers.layer_norm_params(D),
+        }
 
-    def step(
-        self, x_t: jax.Array, cache: LayerCache, t: jax.Array
-    ) -> Tuple[jax.Array, LayerCache]:
+    def __call__(self, p, x: jax.Array, key_mask: jax.Array,
+                 rng: Optional[jax.Array] = None) -> jax.Array:
+        dt, rate = self.dtype, self.config.dropout
+        r_att, r_ff, r_res = layers.split_key(rng, 3)
+
+        def ln(name, h):
+            return layers.layer_norm(p[name], h, dt)
+
         if self._pre_ln:
-            att, ck, cv = self.attention.step(self.ln1(x_t), cache[0],
-                                              cache[1], t)
+            att = self.attention(p["attention"], ln("ln1", x), key_mask)
+            x = x + layers.dropout(att, rate, r_att)
+            ff = self.ff(p["ff"], ln("ln2", x), r_ff)
+            return x + layers.dropout(ff, rate, r_res)
+        att = self.attention(p["attention"], x, key_mask)
+        x = ln("ln1", x + layers.dropout(att, rate, r_att))
+        ff = self.ff(p["ff"], x, r_ff)
+        return ln("ln2", x + layers.dropout(ff, rate, r_res))
+
+    def _step_with(self, attend, p, x_t, cache, t):
+        dt = self.dtype
+        if self._pre_ln:
+            att, ck, cv = attend(p["attention"],
+                                 layers.layer_norm(p["ln1"], x_t, dt),
+                                 cache[0], cache[1], t)
             x_t = x_t + att
-            return x_t + self.ff(self.ln2(x_t), train=False), (ck, cv)
-        att, ck, cv = self.attention.step(x_t, cache[0], cache[1], t)
-        x_t = self.ln1(x_t + att)
-        x_t = self.ln2(x_t + self.ff(x_t, train=False))
+            ff = self.ff(p["ff"], layers.layer_norm(p["ln2"], x_t, dt))
+            return x_t + ff, (ck, cv)
+        att, ck, cv = attend(p["attention"], x_t, cache[0], cache[1], t)
+        x_t = layers.layer_norm(p["ln1"], x_t + att, dt)
+        x_t = layers.layer_norm(p["ln2"], x_t + self.ff(p["ff"], x_t), dt)
         return x_t, (ck, cv)
 
-    def step_ragged(
-        self, x_t: jax.Array, cache: LayerCache, t: jax.Array
-    ) -> Tuple[jax.Array, LayerCache]:
-        if self._pre_ln:
-            att, ck, cv = self.attention.step_ragged(self.ln1(x_t), cache[0],
-                                                     cache[1], t)
-            x_t = x_t + att
-            return x_t + self.ff(self.ln2(x_t), train=False), (ck, cv)
-        att, ck, cv = self.attention.step_ragged(x_t, cache[0], cache[1], t)
-        x_t = self.ln1(x_t + att)
-        x_t = self.ln2(x_t + self.ff(x_t, train=False))
-        return x_t, (ck, cv)
+    def step(self, p, x_t: jax.Array, cache: LayerCache,
+             t: jax.Array) -> Tuple[jax.Array, LayerCache]:
+        return self._step_with(self.attention.step, p, x_t, cache, t)
+
+    def step_ragged(self, p, x_t: jax.Array, cache: LayerCache,
+                    t: jax.Array) -> Tuple[jax.Array, LayerCache]:
+        return self._step_with(self.attention.step_ragged, p, x_t, cache, t)
 
 
-def _layer_call(layer: "TransformerLayer", x, key_mask, train):
-    return layer(x, key_mask, train)
-
-
-# Rematerialized layer application (config.remat): recompute the layer in
-# the backward pass instead of saving its activations.
-_remat_layer_call = nn.remat(_layer_call, static_argnums=(3,))
-
-
-class TransformerStack(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TransformerStack:
     """Shared encoder/decoder stack: sqrt(d)*x + positional table, N layers
-    (reference: transformer.py:214-273)."""
+    ``layer{i}``, and under pre-LN one ``final_ln`` (reference:
+    transformer.py:214-273)."""
 
     config: TransformerConfig
     causal: bool
     dtype: Any = jnp.float32
 
-    def setup(self) -> None:
-        c = self.config
-        self.layers = [
-            TransformerLayer(
-                config=c, causal=self.causal, dtype=self.dtype, name=f"layer{i}"
-            )
-            for i in range(c.num_layers)
-        ]
-        self.pos_table = jnp.asarray(
-            positional_encodings(c.model_size, c.max_positions), dtype=self.dtype
-        )
+    @property
+    def layer(self) -> TransformerLayer:
+        return TransformerLayer(config=self.config, causal=self.causal,
+                                dtype=self.dtype)
+
+    @property
+    def _pre_ln(self) -> bool:
         # Pre-LN stacks end with one final LayerNorm (the per-block LNs
         # move inside the residual branches; without this the stack's
         # output scale grows with depth).
-        if getattr(c, "norm_scheme", "post") == "pre":
-            self.final_ln = nn.LayerNorm(dtype=self.dtype, name="final_ln")
+        return self.config.norm_scheme == "pre"
 
-    def _input(self, x: jax.Array) -> jax.Array:
-        T = x.shape[1]
-        scale = jnp.sqrt(jnp.asarray(self.config.model_size, dtype=x.dtype))
-        return scale * x + self.pos_table[:T]
+    def init(self, key: jax.Array) -> layers.Params:
+        c = self.config
+        keys = jax.random.split(key, c.num_layers)
+        p = {f"layer{i}": self.layer.init(keys[i])
+             for i in range(c.num_layers)}
+        if self._pre_ln:
+            p["final_ln"] = layers.layer_norm_params(c.model_size)
+        return p
+
+    def _pos_table(self) -> jax.Array:
+        c = self.config
+        return jnp.asarray(positional_encodings(c.model_size, c.max_positions),
+                           dtype=self.dtype)
+
+    def _scale(self, x: jax.Array) -> jax.Array:
+        return jnp.sqrt(jnp.asarray(self.config.model_size, dtype=x.dtype)) * x
 
     def _seq_shard(self, x: jax.Array) -> jax.Array:
         """Sequence-parallel activation constraint (config.sequence_sharding):
@@ -522,49 +391,49 @@ class TransformerStack(nn.Module):
             x, NamedSharding(mesh, P(AXIS_DATA, AXIS_MODEL, None))
         )
 
-    def __call__(self, x: jax.Array, key_mask: jax.Array, train: bool) -> jax.Array:
-        """x: [B, T, D]; key_mask: [B, T] 1 for valid positions."""
-        x = self._seq_shard(self._input(x))
-        for layer in self.layers:
-            if self.config.remat and train:
-                x = _remat_layer_call(layer, x, key_mask, train)
-            else:
-                x = layer(x, key_mask, train)
-            x = self._seq_shard(x)
-        if getattr(self.config, "norm_scheme", "post") == "pre":
-            x = self.final_ln(x)
+    def __call__(self, p, x: jax.Array, key_mask: jax.Array,
+                 rng: Optional[jax.Array] = None) -> jax.Array:
+        """x: [B, T, D]; key_mask: [B, T] 1 for valid positions. Dropout
+        runs when ``rng`` is given; config.remat then recomputes each
+        layer in the backward pass instead of saving its activations."""
+        c = self.config
+        layer_fn = self.layer.__call__
+        if c.remat and rng is not None:
+            layer_fn = jax.checkpoint(layer_fn)
+        x = self._scale(x) + self._pos_table()[: x.shape[1]]
+        x = self._seq_shard(x)
+        keys = layers.split_key(rng, c.num_layers)
+        for i in range(c.num_layers):
+            x = self._seq_shard(layer_fn(p[f"layer{i}"], x, key_mask,
+                                         keys[i]))
+        if self._pre_ln:
+            x = layers.layer_norm(p["final_ln"], x, self.dtype)
         return x
 
-    def step(
-        self, x_t: jax.Array, cache: Cache, t: jax.Array
-    ) -> Tuple[jax.Array, Cache]:
-        """One incremental decode position. x_t: [B, D] (pre-scaling)."""
-        scale = jnp.sqrt(jnp.asarray(self.config.model_size, dtype=x_t.dtype))
-        x_t = scale * x_t + jax.lax.dynamic_slice_in_dim(
-            self.pos_table, t, 1, axis=0
-        )[0].astype(x_t.dtype)
+    def _step_layers(self, p, x_t, cache, t, ragged: bool):
+        layer = self.layer
+        step = layer.step_ragged if ragged else layer.step
         new_cache = []
-        for layer, layer_cache in zip(self.layers, cache):
-            x_t, layer_cache = layer.step(x_t, layer_cache, t)
+        for i, layer_cache in enumerate(cache):
+            x_t, layer_cache = step(p[f"layer{i}"], x_t, layer_cache, t)
             new_cache.append(layer_cache)
-        if getattr(self.config, "norm_scheme", "post") == "pre":
-            x_t = self.final_ln(x_t)
+        if self._pre_ln:
+            x_t = layers.layer_norm(p["final_ln"], x_t, self.dtype)
         return x_t, tuple(new_cache)
 
-    def step_ragged(
-        self, x_t: jax.Array, cache: Cache, t: jax.Array
-    ) -> Tuple[jax.Array, Cache]:
+    def step(self, p, x_t: jax.Array, cache: Cache,
+             t: jax.Array) -> Tuple[jax.Array, Cache]:
+        """One incremental decode position. x_t: [B, D] (pre-scaling)."""
+        pos = jax.lax.dynamic_slice_in_dim(self._pos_table(), t, 1, axis=0)[0]
+        x_t = self._scale(x_t) + pos.astype(x_t.dtype)
+        return self._step_layers(p, x_t, cache, t, ragged=False)
+
+    def step_ragged(self, p, x_t: jax.Array, cache: Cache,
+                    t: jax.Array) -> Tuple[jax.Array, Cache]:
         """Per-row-position decode step. x_t: [S, D]; t: [S] int32."""
-        scale = jnp.sqrt(jnp.asarray(self.config.model_size, dtype=x_t.dtype))
-        pos = jnp.take(self.pos_table, t, axis=0)  # [S, D]
-        x_t = scale * x_t + pos.astype(x_t.dtype)
-        new_cache = []
-        for layer, layer_cache in zip(self.layers, cache):
-            x_t, layer_cache = layer.step_ragged(x_t, layer_cache, t)
-            new_cache.append(layer_cache)
-        if getattr(self.config, "norm_scheme", "post") == "pre":
-            x_t = self.final_ln(x_t)
-        return x_t, tuple(new_cache)
+        pos = jnp.take(self._pos_table(), t, axis=0)  # [S, D]
+        x_t = self._scale(x_t) + pos.astype(x_t.dtype)
+        return self._step_layers(p, x_t, cache, t, ragged=True)
 
     def init_cache(
         self, batch_size: int, max_len: int, dtype: Optional[Any] = None

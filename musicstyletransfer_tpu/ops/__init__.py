@@ -1,16 +1,8 @@
-from .flash_attention import (
-    flash_attention,
-    flash_attention_with_lse,
-    reference_attention,
-    should_interpret,
-)
-from .ring_attention import ring_attention_sharded, ring_flash_attention
+"""Attention for the model: ``ops.attention`` (the one batched attention
+function and its float32 reference) and ``ops.ring_attention`` (the
+sequence-parallel ring over a mesh axis)."""
 
-__all__ = [
-    "flash_attention",
-    "flash_attention_with_lse",
-    "reference_attention",
-    "ring_attention_sharded",
-    "ring_flash_attention",
-    "should_interpret",
-]
+from . import attention
+from .ring_attention import ring_attention, ring_attention_sharded
+
+__all__ = ["attention", "ring_attention", "ring_attention_sharded"]

@@ -2,43 +2,29 @@
 
 The reference has no distribution and its longest-sequence answer is
 chunking melodies to ``--max-seq-len`` at tensorization time
-(reference: data.py:139-155; SURVEY.md §5.7). The single-chip TPU answer
-here is the streaming flash kernel (ops/flash_attention.py, T up to 32k+);
-THIS module is the multi-chip continuation: shard the TIME axis over the
-mesh's "model" axis and rotate K/V chunks around the ICI ring with
-``ppermute`` so no device ever materializes the full K/V — attention
-becomes exact sequence parallelism with O(T/n) memory per device.
+(reference: data.py:139-155; SURVEY.md §5.7). On one device the fused
+attention of ops/attention.py handles long sequences; THIS module is the
+multi-device continuation: shard the TIME axis over the mesh's "model"
+axis and rotate K/V chunks around the devices with ``ppermute`` so no
+device ever holds the full K/V in the forward pass.
 
 Mechanics (per ``shard_map``-mapped device holding a [B, H, T/n, D] chunk):
 
 - step 0 is ALWAYS the diagonal chunk (the K/V a device starts with is its
-  own), so causality there is the kernel's ordinary causal mask — no
-  per-step branching on ring position is ever needed;
+  own), so causality there is an ordinary causal mask — no per-step
+  branching on ring position is ever needed;
 - steps 1..n-1 receive a strictly off-diagonal chunk which is either fully
   visible (source chunk index < local index) or fully hidden (> local):
-  both cases are expressed through the kernel's dynamic ``key_lens``
-  argument. Hidden chunks resolve to 0 visible keys, for which the kernel
-  skips every K block — a masked ring step costs a ppermute and nothing
-  else;
-- per-step partials merge by exact logsumexp reweighting
-  (``out = sum_i out_i * exp(lse_i - LSE)``), in f32.
+  both cases are expressed through the per-chunk visible key count;
+- each visit's block attention is plain jnp in float32 and returns its
+  logsumexp; partials merge by exact logsumexp reweighting
+  (``out = sum_i out_i * exp(lse_i - LSE)``).
 
-Backward pass (jax.custom_vjp, re-rotating): instead of letting reverse
-mode save every rotated K/V chunk (n * T/n = one full K/V copy per device
-— forfeiting exactly the O(T/n) scaling sequence parallelism exists for),
-the backward RE-ROTATES the ring. Residuals are only the local q/k/v
-chunks plus the final out and global logsumexp (all O(T/n)); each backward
-step recomputes one visiting chunk's probability blocks from the global
-lse (``p = exp(q k_c^T * scale - LSE)`` — the same remat-from-lse trade
-the flash kernels make) and produces exact dq/dk/dv contributions via the
-flash backward kernels. dK/dV accumulators travel the ring WITH their
-chunk: after the n-1 compute rotations plus one final ppermute each
-chunk's complete gradient lands back on its home device. The gradient of
-the whole ring is therefore exact (same global-softmax math, different
-— mathematically identical — factorization than differentiating the
-merge chain) at O(T/n) memory; pinned against jax.grad of plain XLA
-attention in tests/test_ring_attention.py and measured in
-scripts/ring-memory.py (BASELINE.md round-4 ring paragraph).
+The backward pass is JAX's own differentiation of this forward, through
+``ppermute`` (whose transpose is the reverse rotation). Reverse mode keeps
+the rotated K/V chunks of every visit as residuals, so gradient memory is
+one full K/V copy per device; pinned against jax.grad of plain attention
+in tests/test_ring_attention.py.
 """
 
 from __future__ import annotations
@@ -51,15 +37,10 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from ..parallel.mesh import AXIS_DATA, AXIS_MODEL, current_mesh
-from .flash_attention import (
-    _flash_backward,
-    flash_attention_with_lse,
-    should_interpret,
-)
-
 from ..parallel.mesh import unchecked_shard_map as _unchecked_shard_map
 
 _shard_map = _unchecked_shard_map()
+_NEG_INF = -1e30
 
 
 def _merge(out1, lse1, out2, lse2):
@@ -80,130 +61,35 @@ def _ring_perm(n: int):
 def _chunk_vis(key_lens, src, idx, Tl, causal):
     """Visible key count of chunk ``src`` for this device's queries: the
     global prefix ``key_lens`` clipped to the chunk, zeroed (causal) for
-    chunks strictly after the local one (the diagonal is handled by the
-    kernel's own causal mask, never through this path)."""
+    chunks strictly after the local one (the diagonal applies its own
+    causal mask, never through this path)."""
     vis = jnp.clip(key_lens - src * Tl, 0, Tl)
     if causal:
         vis = jnp.where(src < idx, vis, 0)
     return vis
 
 
-def _ring_forward(q, k, v, key_lens, causal, axis_name, axis_size,
-                  sm_scale, interpret):
-    """Forward ring pass; returns (out f32, global lse f32)."""
-    n = axis_size
-    idx = jax.lax.axis_index(axis_name)
-    Tl = q.shape[2]
-
-    def chunk_attn(k_c, v_c, chunk_lens, is_diagonal):
-        out, lse = flash_attention_with_lse(
-            q, k_c, v_c, chunk_lens,
-            causal and is_diagonal, sm_scale, interpret,
-        )
-        return out.astype(jnp.float32), lse
-
-    # Step 0: the diagonal chunk (own K/V) — ordinary causal mask inside.
-    lens0 = jnp.clip(key_lens - idx * Tl, 0, Tl)
-    out, lse = chunk_attn(k, v, lens0, True)
-
-    if n == 1:
-        return out, lse
-
-    perm = _ring_perm(n)
-
-    def ring_step(carry, s):
-        out, lse, k_c, v_c = carry
-        k_c = jax.lax.ppermute(k_c, axis_name, perm)
-        v_c = jax.lax.ppermute(v_c, axis_name, perm)
-        src = (idx - s) % n  # origin chunk of the K/V now on this device
-        vis = _chunk_vis(key_lens, src, idx, Tl, causal)
-        o_s, l_s = chunk_attn(k_c, v_c, vis, False)
-        out, lse = _merge(out, lse, o_s, l_s)
-        return (out, lse, k_c, v_c), None
-
-    (out, lse, _, _), _ = jax.lax.scan(
-        ring_step, (out, lse, k, v), jnp.arange(1, n)
-    )
+def block_attention(q, k, v, key_lens, causal, sm_scale):
+    """One visit: q [B, H, Tq, D] against a K/V chunk [B, H, Tk, D] whose
+    first ``key_lens`` [B] keys are visible. Returns (out f32, lse f32).
+    A row with no visible key gets a finite lse near -1e30, so the merge
+    gives it zero weight."""
+    hp = jax.lax.Precision.HIGHEST
+    s = jnp.einsum("bhqd,bhkd->bhqk", q.astype(jnp.float32),
+                   k.astype(jnp.float32), precision=hp) * sm_scale
+    Tq, Tk = q.shape[2], k.shape[2]
+    mask = jnp.arange(Tk)[None, None, None, :] < key_lens[:, None, None, None]
+    if causal:
+        mask = mask & (jnp.arange(Tk)[None, :] <= jnp.arange(Tq)[:, None])
+    s = jnp.where(mask, s, _NEG_INF)
+    lse = jax.nn.logsumexp(s, axis=-1)
+    p = jnp.exp(s - lse[..., None])
+    out = jnp.einsum("bhqk,bhkd->bhqd", p, v.astype(jnp.float32),
+                     precision=hp)
     return out, lse
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8))
-def _ring_attention(q, k, v, key_lens, causal, axis_name, axis_size,
-                    sm_scale, interpret):
-    out, _ = _ring_forward(q, k, v, key_lens, causal, axis_name, axis_size,
-                           sm_scale, interpret)
-    return out.astype(q.dtype)
-
-
-def _ring_attention_fwd(q, k, v, key_lens, causal, axis_name, axis_size,
-                        sm_scale, interpret):
-    out, lse = _ring_forward(q, k, v, key_lens, causal, axis_name,
-                             axis_size, sm_scale, interpret)
-    # Residuals are O(T/n): local chunks + the GLOBAL (post-merge) out and
-    # logsumexp — NOT the n rotated K/V copies reverse mode would save.
-    return out.astype(q.dtype), (q, k, v, key_lens, out, lse)
-
-
-def _ring_attention_bwd(causal, axis_name, axis_size, sm_scale, interpret,
-                        residuals, g):
-    """Re-rotating backward: one more trip around the ring.
-
-    Per visiting chunk the flash backward kernels recompute
-    ``p = exp(s - LSE)`` from the saved GLOBAL logsumexp (so every chunk's
-    p are the exact global softmax probabilities, and
-    ``delta = rowsum(dO * O)`` with the global O is the exact softmax
-    Jacobian term), yielding this device's dq contribution plus the
-    visiting chunk's dk/dv contributions. The dk/dv accumulators ride the
-    ring alongside their chunk; the final extra ppermute returns each
-    completed gradient to its home device. Gradient memory: O(T/n).
-    """
-    q, k, v, key_lens, out, lse = residuals
-    n = axis_size
-    idx = jax.lax.axis_index(axis_name)
-    Tl = q.shape[2]
-
-    def chunk_bwd(k_c, v_c, chunk_lens, is_diagonal):
-        dq, dk, dv = _flash_backward(
-            q, k_c, v_c, chunk_lens, lse, out, g,
-            causal and is_diagonal, sm_scale, interpret,
-        )
-        return (dq.astype(jnp.float32), dk.astype(jnp.float32),
-                dv.astype(jnp.float32))
-
-    lens0 = jnp.clip(key_lens - idx * Tl, 0, Tl)
-    dq, dk_c, dv_c = chunk_bwd(k, v, lens0, True)
-
-    if n == 1:
-        return dq.astype(q.dtype), dk_c.astype(k.dtype), dv_c.astype(v.dtype), None
-
-    perm = _ring_perm(n)
-
-    def ring_step(carry, s):
-        dq, k_c, v_c, dk_c, dv_c = carry
-        k_c = jax.lax.ppermute(k_c, axis_name, perm)
-        v_c = jax.lax.ppermute(v_c, axis_name, perm)
-        dk_c = jax.lax.ppermute(dk_c, axis_name, perm)
-        dv_c = jax.lax.ppermute(dv_c, axis_name, perm)
-        src = (idx - s) % n
-        vis = _chunk_vis(key_lens, src, idx, Tl, causal)
-        dq_s, dk_s, dv_s = chunk_bwd(k_c, v_c, vis, False)
-        return (dq + dq_s, k_c, v_c, dk_c + dk_s, dv_c + dv_s), None
-
-    (dq, _, _, dk_c, dv_c), _ = jax.lax.scan(
-        ring_step, (dq, k, v, dk_c, dv_c), jnp.arange(1, n)
-    )
-    # After n-1 compute rotations chunk j's accumulator sits on device
-    # (j + n - 1) % n; one final rotation brings it home.
-    dk = jax.lax.ppermute(dk_c, axis_name, perm)
-    dv = jax.lax.ppermute(dv_c, axis_name, perm)
-    return (dq.astype(q.dtype), dk.astype(k.dtype), dv.astype(v.dtype),
-            None)
-
-
-_ring_attention.defvjp(_ring_attention_fwd, _ring_attention_bwd)
-
-
-def ring_flash_attention(
+def ring_attention(
     q: jax.Array,
     k: jax.Array,
     v: jax.Array,
@@ -213,7 +99,6 @@ def ring_flash_attention(
     axis_name: str,
     axis_size: int,
     sm_scale: Optional[float] = None,
-    interpret: bool = False,
 ) -> jax.Array:
     """Ring attention body — call INSIDE shard_map.
 
@@ -224,8 +109,30 @@ def ring_flash_attention(
     """
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    return _ring_attention(q, k, v, key_lens, causal, axis_name, axis_size,
-                           sm_scale, interpret)
+    n = axis_size
+    idx = jax.lax.axis_index(axis_name)
+    Tl = q.shape[2]
+
+    # Step 0: the diagonal chunk (own K/V) — ordinary causal mask inside.
+    lens0 = jnp.clip(key_lens - idx * Tl, 0, Tl)
+    out, lse = block_attention(q, k, v, lens0, causal, sm_scale)
+    if n > 1:
+        perm = _ring_perm(n)
+
+        def ring_step(carry, s):
+            out, lse, k_c, v_c = carry
+            k_c = jax.lax.ppermute(k_c, axis_name, perm)
+            v_c = jax.lax.ppermute(v_c, axis_name, perm)
+            src = (idx - s) % n  # origin chunk of the K/V now on this device
+            vis = _chunk_vis(key_lens, src, idx, Tl, causal)
+            o_s, l_s = block_attention(q, k_c, v_c, vis, False, sm_scale)
+            out, lse = _merge(out, lse, o_s, l_s)
+            return (out, lse, k_c, v_c), None
+
+        (out, lse, _, _), _ = jax.lax.scan(
+            ring_step, (out, lse, k, v), jnp.arange(1, n)
+        )
+    return out.astype(q.dtype)
 
 
 def ring_attention_sharded(
@@ -238,7 +145,6 @@ def ring_attention_sharded(
     mesh=None,
     seq_axis: str = AXIS_MODEL,
     batch_axis: str = AXIS_DATA,
-    interpret: Optional[bool] = None,
 ) -> jax.Array:
     """Jit-compatible wrapper: shard_map the ring over ``mesh``.
 
@@ -253,11 +159,12 @@ def ring_attention_sharded(
     """
     if mesh is None:
         mesh = current_mesh()
-    assert mesh is not None, "ring_attention_sharded needs a mesh"
+    if mesh is None:
+        raise ValueError("ring_attention_sharded needs a mesh")
     n = mesh.shape[seq_axis]
-    assert q.shape[0] % mesh.shape[batch_axis] == 0, (q.shape, mesh.shape)
-    if interpret is None:
-        interpret = should_interpret()
+    if q.shape[0] % mesh.shape[batch_axis]:
+        raise ValueError(f"batch {q.shape[0]} does not divide the "
+                         f"{batch_axis!r} axis of {dict(mesh.shape)}")
 
     T = q.shape[2]
     T_pad = ((T + n - 1) // n) * n
@@ -267,12 +174,11 @@ def ring_attention_sharded(
 
     qkv_spec = P(batch_axis, None, seq_axis, None)
     body = functools.partial(
-        ring_flash_attention,
+        ring_attention,
         causal=causal,
         axis_name=seq_axis,
         axis_size=n,
         sm_scale=sm_scale,
-        interpret=interpret,
     )
     out = _shard_map(
         body,

@@ -1,13 +1,13 @@
 """Device mesh + sharding rules (jax.sharding / pjit).
 
 The reference has no distribution of any kind (SURVEY.md §2: single
-mx.Context, main.py:124). The TPU-native equivalent is a single-program
+mx.Context, main.py:124). The JAX equivalent is a single-program
 ``jax.jit`` over a 2D ``Mesh``:
 
 - axis "data":  batch (data parallelism); gradient psum is inserted by XLA.
 - axis "model": tensor parallelism over attention heads / FFN hidden dim.
 
-Collectives ride ICI via XLA's GSPMD partitioner — never hand-rolled.
+Collectives are inserted by XLA's GSPMD partitioner — never hand-rolled.
 """
 
 from __future__ import annotations
@@ -122,8 +122,8 @@ def shard_batch(batch_arrays: Any, mesh: Mesh) -> Any:
 def unchecked_shard_map():
     """``shard_map`` with the replication checker OFF, version-portable.
 
-    Manual collectives inside the mapped body (ppermute rings, Pallas
-    calls) trip the checker, whose kwarg was renamed check_rep ->
+    Manual collectives inside the mapped body (ppermute rings) trip the
+    checker, whose kwarg was renamed check_rep ->
     check_vma across jax versions; this is the one place that smooths
     both over (used by ops/ring_attention.py and parallel/pipeline.py).
     """

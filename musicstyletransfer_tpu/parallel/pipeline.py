@@ -6,7 +6,7 @@ parallelism (mesh.py, ops/ring_attention.py); this module completes the
 sharding matrix with a PIPELINE primitive: a stack of identical stages is
 sharded one-stage-per-device over a mesh axis, and microbatches stream
 through the stages with activations hopping device-to-device via
-``ppermute`` — the TPU-native equivalent of NCCL send/recv stage wiring,
+``ppermute`` — the JAX equivalent of NCCL send/recv stage wiring,
 expressed as one jitted SPMD program.
 
 Schedule: plain GPipe. M microbatches over S stages take M + S - 1 ticks;

@@ -1,4 +1,4 @@
-"""Pipeline-parallel TransformerStack: the adapter between flax layer
+"""Pipeline-parallel TransformerStack: the adapter between per-layer
 params and pipeline.py's stacked-stage contract.
 
 ``pipeline_apply`` (parallel/pipeline.py) wants stage params stacked on a
@@ -75,10 +75,7 @@ def transformer_stage_fn(layer_module):
         h, key_mask = carry
 
         def body(h, p_layer):
-            return (
-                layer_module.apply({"params": p_layer}, h, key_mask, False),
-                None,
-            )
+            return layer_module(p_layer, h, key_mask), None
 
         h, _ = jax.lax.scan(body, h, params_k)
         return h, key_mask

@@ -44,8 +44,8 @@ def masked_topk_accuracy(
 ) -> Tuple[jax.Array, jax.Array]:
     """Label-in-top-k via the label's RANK, not a top_k/sort.
 
-    ``lax.top_k`` lowers to a full sort on TPU — profiled at ~1 ms/step
-    (~6%) on the scaled config, purely for this metric. The label is in
+    ``lax.top_k`` can lower to a full sort over the vocabulary, purely
+    for this metric. The label is in
     the top k iff fewer than k entries outrank it, where an entry outranks
     the label if it is strictly greater OR equal-valued at a lower index
     (top_k's lowest-index-first tie rule) — two cheap compare+reduce

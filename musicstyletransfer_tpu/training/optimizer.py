@@ -5,8 +5,8 @@ param strings, used as ``clip_gradient:1.0`` in scripts/train-vae.sh:19) and
 trainer.py:94-101 (gluon.Trainer construction).
 
 MXNet's ``clip_gradient`` clips each gradient element to [-c, c]; optax's
-``optax.clip`` matches that semantic. ``clip_global_norm`` is offered as a
-TPU-era extra.
+``optax.clip`` matches that semantic. ``clip_global_norm`` is offered as an
+extra.
 """
 
 from __future__ import annotations

@@ -1,13 +1,12 @@
-"""Measured save/restore cost of the shard-native multihost checkpoint
-path at the WIDE config (VERDICT r03 item 9's closing note).
+"""Save/restore cost of the multi-process checkpoint path at the WIDE
+config.
 
-Two CPU processes, 2x2 mesh with the model axis spanning them (the
-round-3 all-gather cliff configuration), the train-vae-wide.sh model
-(enc 4x1024 h16 / dec 2x512, ~60M params, adam: 3x that in state).
-Each process reports wall time of save_checkpoint / restore_checkpoint
-and its peak RSS (ru_maxrss) — the shard-native path serializes only
-local shards, so peak memory stays O(local state + largest leaf), not
-O(total params) like the r03 full-replication save.
+Two CPU processes (the children never touch a GPU), 2x2 mesh with the
+model axis spanning them, the train-vae-wide.sh model (enc 4x1024 h16 /
+dec 2x512, ~60M params, adam: 3x that in state). Each process reports
+wall time of save_checkpoint / restore_checkpoint and its peak RSS
+(ru_maxrss): the save all-gathers one leaf at a time and only the primary
+holds host copies, so a non-primary's peak stays O(largest leaf).
 
 Run: python scripts/ckpt-save-bench.py            (launcher)
      python scripts/ckpt-save-bench.py <pid> <coordinator> <folder>
@@ -112,8 +111,8 @@ def launcher() -> None:
         s.bind(("", 0))
         port = s.getsockname()[1]
     folder = tempfile.mkdtemp(prefix="ckpt-save-bench-")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
     procs = [
         subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(pid),

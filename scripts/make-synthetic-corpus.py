@@ -1,7 +1,5 @@
 """Generate a multi-thousand-file synthetic MIDI corpus for the scaled
-end-to-end run (VERDICT r02 item 8 — BASELINE config #4 needs a real
-training run at L=512 on corpus-scale data, and this image has no network
-to fetch a Lakh subset).
+end-to-end run.
 
 Two style classes with genuinely different statistics, so a class-
 conditional VAE has signal to separate and the transfer-stats JS metric

@@ -20,7 +20,7 @@ import os
 import sys
 import tempfile
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> None:
@@ -101,7 +101,7 @@ def report(trace_dir: str, n: int) -> None:
             tid_names[(ev["pid"], ev.get("tid"))] = ev["args"].get("name", "")
     device_pids = {
         pid for pid, name in pid_names.items()
-        if any(s in name.lower() for s in ("tpu", "device", "xla", "/device"))
+        if any(s in name.lower() for s in ("gpu", "device", "xla", "/device"))
     } or set(pid_names)
     # The device pid carries several lanes: "Steps" (iteration markers
     # "0".."9"), "XLA Modules" (the jit_... umbrella spanning each whole
@@ -124,14 +124,14 @@ def report(trace_dir: str, n: int) -> None:
 
         The scaled config's signatures: FFN dots touch the 512x2048 (or
         256x1024 decoder) weight; attention-core ops carry a [B,H,T,T]
-        score tensor (T=512 -> "512,512"); q/k/v/o projections are square
+        score tensor (T=512 -> "512,512") on XLA's path; q/k/v/o projections are square
         d x d dots. Anything unmatched falls into its hlo_category."""
         import re
 
         long = args.get("long_name", "")
         cat = args.get("hlo_category", "?")
-        if "custom-call" in cat and "mosaic" in long.lower():
-            return "pallas kernel"
+        if "custom-call" in cat and "cudnn" in long.lower():
+            return "cudnn attention"
         # Attention score/softmax ops carry a 4D [B, H, T, T] tensor
         # (T = L+1 or L+2 here, so match "last two dims equal" not a
         # hard-coded size).

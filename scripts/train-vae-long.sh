@@ -4,12 +4,10 @@
 # rotate via ppermute (ops/ring_attention.py). Any max-seq-len works (the
 # ring pads the time axis internally); 2046 keeps the decoder's T = L+2 at
 # a round 2048.
-# On a single chip the ring is ineligible and the stacks fall back to the
-# HBM-streaming flash kernel — same command, graceful degradation (TP
-# defaults to 1 so the command runs anywhere; set TP=2.. on a multi-chip
+# On a single device the ring is ineligible and the stacks use the fused
+# attention of ops/attention.py — same command, graceful degradation (TP
+# defaults to 1 so the command runs anywhere; set TP=2.. on a multi-GPU
 # host to engage the ring — make_mesh rejects TP > device count).
-# Single-chip step-time table for these lengths: BASELINE.md
-# "Long-sequence training".
 set -e
 
 python -m musicstyletransfer_tpu.cli.main \
@@ -35,33 +33,31 @@ python -m musicstyletransfer_tpu.cli.main \
 --d-n-layers 2 \
 --d-rnn-hidden-dim 256 \
 --d-dropout 0.1 \
---use-flash-attention \
 --kl-anneal-steps 2000 \
 --free-bits 0.1 \
 --class-conditioning per_step \
 --ring-attention \
 --tp "${TP:-1}" \
 "$@"
-# --class-conditioning per_step --free-bits 0.1 (round 5): the
+# --class-conditioning per_step --free-bits 0.1: the
 # structural fix for long-L conditioning. With the class signal only in
 # the prepended position-0 state, NO free-bits floor passed both
 # quality axes at L=2046 — 0.1 (51 nats) let z's register info override
 # the class (transfers kept the SOURCE register), 0.02 flipped register
 # but starved content preservation to its null's edge (both ends
-# measured, BASELINE.md round-4 long-sequence rerun). Injecting the
+# measured). Injecting the
 # class embedding at EVERY decoder position decouples the two: the
 # class no longer competes with z for the position-0 channel, so the
 # floor can stay at the corpus-scale 0.1 and z keeps row content.
-# Measured (BASELINE.md round-5, models/long_ps01): octave JS to
+# Measured (models/long_ps01): octave JS to
 # target 0.009 vs 0.653 to the other class (128 transfers; the best
 # initial-only point managed 0.168), own-source JS <= shuffled null
 # (0.375 < 0.396 at n=32, at the null at n=128 under sampled decode),
 # same teacher-forced quality (acc 0.600 / ppl 2.84, eval KL 8.4).
-# skip_nonfinite:10 (round 5): the measured long run logged finite
-# grad spikes to 2.6e4 near the end; the guard rejects any NaN/Inf
-# step outright (inert on finite grads, so it does not change the
-# measured recipe) — see the wide rerun's NaN post-mortem in
-# BASELINE.md. --kl-anneal-steps 2000: same documented
+# skip_nonfinite:10: the measured long run logged finite grad spikes to
+# 2.6e4 near the end; the guard rejects any NaN/Inf step outright (inert
+# on finite grads, so it does not change the measured recipe).
+# --kl-anneal-steps 2000: same documented
 # divergence family as train-vae.sh (the plain objective collapses the
 # latent). Pass --kl-anneal-steps 0 --free-bits 0 --class-conditioning
 # initial for the bare reference objective.

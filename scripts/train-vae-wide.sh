@@ -1,9 +1,7 @@
 #!/bin/bash
-# Wide VAE: the MFU-validation config from BASELINE.md (enc 4x1024 h16 /
-# dec 2x512 h16, L=512, bf16, remat-free). Measured rough MFU 0.437 at
-# batch 8 on v5e (scripts/mfu-sweep.py --big) — the highest-utilization
-# training config this framework ships; use it when the corpus is large
-# enough to feed ~79M parameters.
+# Wide VAE (enc 4x1024 h16 / dec 2x512 h16, L=512, bf16, remat-free): the
+# largest-matmul training config this framework ships; use it when the
+# corpus is large enough to feed ~79M parameters.
 set -e
 
 python -m musicstyletransfer_tpu.cli.main \
@@ -29,7 +27,6 @@ python -m musicstyletransfer_tpu.cli.main \
 --d-n-layers 2 \
 --d-rnn-hidden-dim 512 \
 --d-dropout 0.1 \
---use-flash-attention \
 --norm-scheme pre \
 --kl-anneal-steps 2000 \
 --free-bits 0.1 \
@@ -37,14 +34,12 @@ python -m musicstyletransfer_tpu.cli.main \
 "$@"
 # --kl-anneal-steps 2000 --free-bits 0.1: same documented divergence
 # as train-vae.sh — the plain objective measurably collapses the
-# latent at this scale (KL 0.001 on the round-3 scaled run;
-# BASELINE.md scaled-run footnote). Pass --kl-anneal-steps 0
-# --free-bits 0 for the bare reference objective.
+# latent at this scale (KL 0.001 on an earlier scaled run). Pass
+# --kl-anneal-steps 0 --free-bits 0 for the bare reference objective.
 #
-# Schedule + global-norm clip (round 5): the round-4 wide run at a flat
-# 2e-4 had late-run grad-norm spikes (8.5-28.3) and per-checkpoint
-# generation health oscillating to a degenerate FINAL checkpoint
-# (BASELINE.md wide-run table). warmup 500 + cosine decay over 17k
+# Schedule + global-norm clip: a wide run at a flat 2e-4 had late-run
+# grad-norm spikes (8.5-28.3) and per-checkpoint generation health
+# oscillating to a degenerate FINAL checkpoint. warmup 500 + cosine decay over 17k
 # steps (the 20-epoch budget on the synth_scaled corpus) plus
 # clip_global_norm:1.0 bound the tail; the trainer's per-checkpoint
 # generation-health probe (--gen-health-rows, default 8) tracks decode
@@ -52,12 +47,5 @@ python -m musicstyletransfer_tpu.cli.main \
 #
 # --norm-scheme pre is what actually holds this config together: post-LN
 # at d=1024 depth-4 explodes in the BACKWARD at ~2200 steps regardless
-# of schedule/clipping (BASELINE.md wide NaN post-mortem). With pre-LN
-# bounding grad norms at <=7.0, the Pallas attention-core backward's
-# f32 overflow regime (hit at ~1e19 cotangents during the post-LN
-# blow-ups) is unreachable — a full 17,240-step probe run with the
-# Pallas backward matched the XLA-route run's final quality with ZERO
-# non-finite updates at ~52.6 vs ~42 updates/s (round-5 probe,
-# BASELINE.md), so the faster Pallas backward is the default here.
-# Pass --attention-core-xla-backward to restore the overflow-robust
-# route if you revert to post-LN or see skipped updates in the logs.
+# of schedule/clipping. Pre-LN bounded grad norms at <=7.0 over a full
+# 17,240-step run with zero non-finite updates.

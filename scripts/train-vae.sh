@@ -1,6 +1,6 @@
 #!/bin/bash
 # Canonical VAE training run (reference: scripts/train-vae.sh:1-29).
-# Same hyperparameters; entry point is the TPU-native CLI.
+# Same hyperparameters; entry point is this package's CLI.
 set -e
 
 python -m musicstyletransfer_tpu.cli.main \
@@ -32,14 +32,12 @@ python -m musicstyletransfer_tpu.cli.main \
 --kl-anneal-steps 2000 \
 --free-bits 0.1 \
 "$@"
-# --steps-per-dispatch 8: the canonical step became dispatch-bound when
-# per-dispatch host cost grew platform-side (same-window A/B: 28-31
-# updates/s single-step vs 187-237 at K=8 — BASELINE.md "dispatch-cost
-# shift"). Bit-identical training trajectory; pass --steps-per-dispatch 1
-# to restore per-step dispatch.
+# --steps-per-dispatch 8: the canonical step is small enough for host
+# dispatch to matter; 8 steps per program amortize it. Bit-identical
+# training trajectory; pass --steps-per-dispatch 1 for per-step dispatch.
 # --kl-anneal-steps 2000 --free-bits 0.1: DOCUMENTED DIVERGENCE from the
 # reference objective (round 4). The plain objective measurably collapses
 # the latent (KL -> 0.001; target-fit looks fine while content
-# preservation dies — BASELINE.md quality table), so the shipped
+# preservation dies), so the shipped
 # checkpoint's recipe is the default. Pass --kl-anneal-steps 0
 # --free-bits 0 for the bare reference objective.

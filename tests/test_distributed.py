@@ -1,5 +1,5 @@
-"""Real 2-process distributed CPU test (SURVEY.md §5.8 DCN readiness /
-round-1 VERDICT missing #4): two OS processes, gloo collectives, 2 virtual
+"""Real 2-process distributed CPU test (SURVEY.md §5.8 multi-process
+readiness): two OS processes, gloo collectives, 2 virtual
 CPU devices each, data-parallel training through the REAL Trainer with
 process-sharded data loading and global-array assembly. Both processes must
 agree with each other bitwise and with a single-process run numerically."""
@@ -24,6 +24,37 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("pid,per_host,want", [
+    (0, 4, 0), (3, 4, 3), (4, 4, 0), (9, 8, 1), (15, 8, 7),
+])
+def test_gpu_process_owns_its_local_card(monkeypatch, pid, per_host, want):
+    """A rank beyond the host's card count maps to its local card, not to
+    a card index the host does not have."""
+    from musicstyletransfer_tpu.parallel import distributed
+
+    seen = {}
+    monkeypatch.setattr(distributed.jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    distributed.initialize_distributed("localhost:1", num_processes=16,
+                                       process_id=pid, gpus_per_host=per_host)
+    assert seen == {"coordinator_address": "localhost:1",
+                    "num_processes": 16, "process_id": pid,
+                    "local_device_ids": [want]}
+
+
+def test_gpu_single_host_default_and_bad_count(monkeypatch):
+    from musicstyletransfer_tpu.parallel import distributed
+
+    seen = {}
+    monkeypatch.setattr(distributed.jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    distributed.initialize_distributed("localhost:1", num_processes=4,
+                                       process_id=3)
+    assert seen["local_device_ids"] == [3]
+    with pytest.raises(ValueError, match="gpus_per_host"):
+        distributed.gpu_local_device_ids(0, 0)
 
 
 @pytest.fixture(scope="module")
@@ -158,11 +189,11 @@ class TestTwoProcessTraining:
 
 
 class TestFaultInjection:
-    """VERDICT r03 item 7: kill -9 one worker mid-run — including while an
-    async orbax save is in flight — restart the pair, and the run must
+    """kill -9 one worker mid-run — including while an
+    async checkpoint save is in flight — restart the pair, and the run must
     resume from the last COMPLETE checkpoint bitwise with assert_in_sync
     passing. Recovery semantics: Trainer._load_latest_checkpoint walks
-    checkpoints newest-first (orbax commits by atomic rename, so an
+    checkpoints newest-first (saves commit by atomic rename, so an
     interrupted save usually just never appears; a corrupt survivor falls
     back to its predecessor)."""
 
@@ -221,8 +252,8 @@ class TestFaultInjection:
 
 
 class TestTPCheckpointAcrossProcesses:
-    """VERDICT r02 item 5: multi-process TP states must checkpoint and
-    restore bitwise through orbax's collective multihost protocol."""
+    """multi-process TP states must checkpoint and
+    restore bitwise through the collective gather-to-primary save."""
 
     def test_tp2_save_restore_bitwise(self, tmp_path):
         folder = str(tmp_path / "tp-ckpt")

@@ -52,9 +52,7 @@ class TestGANModel:
         B, L, V = 5, 8, 12
         noise = jax.random.normal(jax.random.key(1), (B, L, 4))
         classes = jnp.asarray([0, 1, 2, 0, 1])
-        logits, tokens = gen.apply(
-            {"params": g_params}, noise, classes, jax.random.key(2), hard=False
-        )
+        logits, tokens = gen(g_params, noise, classes, jax.random.key(2), hard=False)
         assert logits.shape == (B, L, V)
         assert logits.dtype == jnp.float32
         assert tokens.shape == (B, L)
@@ -68,15 +66,11 @@ class TestGANModel:
         noise = jax.random.normal(jax.random.key(1), (2, 8, 4))
         classes = jnp.zeros((2,), jnp.int32)
         # hard mode applies with the SAME params tree: structure must match.
-        logits_h, tokens_h = gen.apply(
-            {"params": g_params}, noise, classes, jax.random.key(2), hard=True
-        )
+        logits_h, tokens_h = gen(g_params, noise, classes, jax.random.key(2), hard=True)
         assert logits_h.shape == (2, 8, 12)
         # First-step logits agree between modes (divergence only enters via
         # the fed-back embedding from step 2 on).
-        logits_s, _ = gen.apply(
-            {"params": g_params}, noise, classes, jax.random.key(2), hard=False
-        )
+        logits_s, _ = gen(g_params, noise, classes, jax.random.key(2), hard=False)
         np.testing.assert_allclose(
             np.asarray(logits_h[:, 0]), np.asarray(logits_s[:, 0]),
             rtol=1e-5, atol=1e-5,
@@ -87,10 +81,8 @@ class TestGANModel:
         gen = make_generator(cfg)
         g_params, _ = init_gan_params(cfg, jax.random.key(0))
         noise = jax.random.normal(jax.random.key(1), (1, 8, 4))
-        la, _ = gen.apply({"params": g_params}, noise,
-                          jnp.asarray([0]), jax.random.key(2))
-        lb, _ = gen.apply({"params": g_params}, noise,
-                          jnp.asarray([1]), jax.random.key(2))
+        la, _ = gen(g_params, noise, jnp.asarray([0]), jax.random.key(2))
+        lb, _ = gen(g_params, noise, jnp.asarray([1]), jax.random.key(2))
         assert not np.allclose(np.asarray(la), np.asarray(lb))
 
     def test_discriminator_projection_off(self):
@@ -108,9 +100,9 @@ class TestGANModel:
         disc = make_discriminator(cfg)
         dists = jnp.zeros((2, 8, 12), jnp.float32)
         classes = jnp.zeros((2,), jnp.int32)
-        params = disc.init(jax.random.key(0), dists, classes)["params"]
+        params = disc.init(jax.random.key(0))
         assert "class_proj" not in params
-        out = disc.apply({"params": params}, dists, classes)
+        out = disc(params, dists, classes)
         assert out.shape == (2, 8)
 
     def test_discriminator_shapes_and_grad_flow(self):
@@ -122,10 +114,8 @@ class TestGANModel:
 
         def g_loss(gp):
             noise = jax.random.normal(jax.random.key(1), (B, L, 4))
-            logits, _ = gen.apply({"params": gp}, noise, classes,
-                                  jax.random.key(2), hard=False)
-            pred = disc.apply({"params": d_params}, jax.nn.softmax(logits),
-                              classes)
+            logits, _ = gen(gp, noise, classes, jax.random.key(2), hard=False)
+            pred = disc(d_params, jax.nn.softmax(logits), classes)
             assert pred.shape == (B, L)
             return -jnp.mean(pred)
 
@@ -221,7 +211,7 @@ class TestGANSteps:
 
     def test_r1_default_is_on(self):
         """Round-4 shipped default: r1_gamma=0.1 (the unregularized run
-        measurably self-destructs — BASELINE.md GAN table); the parity
+        measurably self-destructs); the parity
         surface is restored via cli/gan.py's --parity-gan."""
         assert GANTrainConfig().r1_gamma == 0.1
         from musicstyletransfer_tpu.cli.gan import (

@@ -41,29 +41,25 @@ class TestLSTMDecoder:
         cfg, model, params = setup
         B, L = 3, 4
         tokens = jnp.ones((B, L + 1), jnp.int32)
-        logits, mu, logvar = model.apply(
-            {"params": params}, tokens, jnp.full((B,), L, jnp.int32),
-            jnp.zeros((B,), jnp.int32), train=False,
-        )
+        logits, mu, logvar = model(params, tokens,
+                                   jnp.full((B,), L, jnp.int32),
+                                   jnp.zeros((B,), jnp.int32))
         assert logits.shape == (B, L + 1, 10)
 
     def test_step_matches_scan(self, setup):
         cfg, model, params = setup
         dec = LSTMDecoder(config=cfg.decoder_config, dtype=jnp.float32)
-        dp = {"params": params["decoder"]}
+        dp = params["decoder"]
         B, L = 2, 5
         rng = np.random.default_rng(0)
         tokens = jnp.asarray(rng.integers(1, 10, (B, L)), jnp.int32)
         z = jnp.asarray(rng.normal(size=(B, 8)), jnp.float32)
         classes = jnp.asarray([0, 2], jnp.int32)
 
-        batched = dec.apply(dp, tokens, None, z, classes, False)
-        cache = dec.apply(dp, z, classes, 0, method=LSTMDecoder.prefill)
+        batched = dec(dp, tokens, None, z, classes)
+        cache = dec.prefill(dp, z, classes, 0)
         for t in range(L):
-            logits_t, cache = dec.apply(
-                dp, tokens[:, t], cache, jnp.asarray(t),
-                method=LSTMDecoder.step_token,
-            )
+            logits_t, cache = dec.step_token(dp, tokens[:, t], cache, jnp.asarray(t))
             np.testing.assert_allclose(
                 np.asarray(logits_t), np.asarray(batched[:, t]), rtol=2e-4,
                 atol=2e-4, err_msg=f"step {t}",

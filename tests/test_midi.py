@@ -291,7 +291,9 @@ class TestSmfPropertyRoundTrip:
         rng = np.random.default_rng(123)
         buffers = [rng.bytes(n) for n in (0, 1, 13, 14, 64, 300)]
         # plausible-looking garbage: real header, corrupted body
-        real = sorted(glob.glob("/root/reference/work/data/guitar_bass/*/*.mid"))
+        corpus = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "work", "data", "guitar_bass")
+        real = sorted(glob.glob(os.path.join(corpus, "*", "*.mid")))
         if real:
             base = bytearray(open(real[0], "rb").read())
             for _ in range(40):

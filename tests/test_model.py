@@ -50,9 +50,7 @@ class TestForward:
         tokens = jnp.ones((B, L + 1), jnp.int32)
         seq_lens = jnp.full((B,), L, jnp.int32)
         classes = jnp.zeros((B,), jnp.int32)
-        logits, mu, logvar = model.apply(
-            {"params": params}, tokens, seq_lens, classes, train=False
-        )
+        logits, mu, logvar = model(params, tokens, seq_lens, classes)
         assert logits.shape == (B, L + 1, 10)
         assert mu.shape == (B, 8) and logvar.shape == (B, 8)
 
@@ -63,7 +61,7 @@ class TestForward:
         from musicstyletransfer_tpu.models.vae import VAEEncoder
 
         enc = VAEEncoder(config=cfg.encoder_config, dtype=jnp.float32)
-        ep = {"params": params["encoder"]}
+        ep = params["encoder"]
         B = 2
         content = np.array([[1, 4, 5, 6], [1, 7, 8, 9]], np.int32)
         classes = jnp.zeros((B,), jnp.int32)
@@ -72,7 +70,7 @@ class TestForward:
             toks = np.concatenate(
                 [content, np.zeros((B, pad_len), np.int32)], axis=1
             )
-            mu, _ = enc.apply(ep, jnp.asarray(toks), classes, False)
+            mu, _ = enc(ep, jnp.asarray(toks), classes)
             return np.asarray(mu)
 
         np.testing.assert_allclose(mu_for(1), mu_for(5), rtol=1e-5, atol=1e-5)
@@ -93,9 +91,9 @@ class TestForward:
 
         z = jnp.zeros((B, 8))
         dec = VAEDecoder(config=cfg.decoder_config, dtype=jnp.float32)
-        dp = {"params": params["decoder"]}
-        da = dec.apply(dp, jnp.asarray(t0), seq_lens, z, classes, False)
-        db = dec.apply(dp, jnp.asarray(t1), seq_lens, z, classes, False)
+        dp = params["decoder"]
+        da = dec(dp, jnp.asarray(t0), seq_lens, z, classes)
+        db = dec(dp, jnp.asarray(t1), seq_lens, z, classes)
         np.testing.assert_allclose(
             np.asarray(da)[:, :4], np.asarray(db)[:, :4], rtol=1e-5, atol=1e-5
         )
@@ -106,14 +104,8 @@ class TestForward:
         B, L = 2, 6
         tokens = jnp.ones((B, L + 1), jnp.int32) * 3
         seq_lens = jnp.full((B,), L, jnp.int32)
-        l0, m0, _ = model.apply(
-            {"params": params}, tokens, seq_lens, jnp.zeros((B,), jnp.int32),
-            train=False,
-        )
-        l1, m1, _ = model.apply(
-            {"params": params}, tokens, seq_lens, jnp.ones((B,), jnp.int32),
-            train=False,
-        )
+        l0, m0, _ = model(params, tokens, seq_lens, jnp.zeros((B,), jnp.int32))
+        l1, m1, _ = model(params, tokens, seq_lens, jnp.ones((B,), jnp.int32))
         assert not np.allclose(np.asarray(m0), np.asarray(m1))
         assert not np.allclose(np.asarray(l0), np.asarray(l1))
 
@@ -135,21 +127,16 @@ class TestIncrementalDecode:
         z = jnp.asarray(rng.normal(size=(B, 8)), jnp.float32)
 
         dec = VAEDecoder(config=cfg.decoder_config, dtype=jnp.float32)
-        dp = {"params": params["decoder"]}
-        batched = dec.apply(dp, jnp.asarray(tokens), seq_lens, z, classes, False)
+        dp = params["decoder"]
+        batched = dec(dp, jnp.asarray(tokens), seq_lens, z, classes)
 
         # Incremental: prefill fills cache position 0 (conditioning state,
         # whose prediction is dropped); stepping token j at position j+1
         # must reproduce batched logits[:, j].
-        cache = dec.apply(dp, z, classes, L + 2, method=VAEDecoder.prefill)
+        cache = dec.prefill(dp, z, classes, L + 2)
         for t in range(1, L + 2):
-            logits_t, cache = dec.apply(
-                dp,
-                jnp.asarray(tokens[:, t - 1]),
-                cache,
-                jnp.asarray(t),
-                method=VAEDecoder.step_token,
-            )
+            logits_t, cache = dec.step_token(
+                dp, jnp.asarray(tokens[:, t - 1]), cache, jnp.asarray(t))
             np.testing.assert_allclose(
                 np.asarray(logits_t),
                 np.asarray(batched[:, t - 1]),
@@ -160,8 +147,8 @@ class TestIncrementalDecode:
 
 
 class TestPreLN:
-    """norm_scheme="pre": the stability scheme the wide preset uses
-    (BASELINE.md round-5 wide NaN post-mortem). Must preserve the
+    """norm_scheme="pre": the stability scheme the wide preset uses.
+    Must preserve the
     incremental-decode == batched-forward anchor and carry its final
     stack LN in both paths."""
 
@@ -205,15 +192,12 @@ class TestPreLN:
         z = jnp.asarray(rng.normal(size=(B, 8)), jnp.float32)
 
         dec = VAEDecoder(config=cfg.decoder_config, dtype=jnp.float32)
-        dp = {"params": params["decoder"]}
-        batched = dec.apply(dp, jnp.asarray(tokens), seq_lens, z, classes,
-                            False)
-        cache = dec.apply(dp, z, classes, L + 2, method=VAEDecoder.prefill)
+        dp = params["decoder"]
+        batched = dec(dp, jnp.asarray(tokens), seq_lens, z, classes)
+        cache = dec.prefill(dp, z, classes, L + 2)
         for t in range(1, L + 2):
-            logits_t, cache = dec.apply(
-                dp, jnp.asarray(tokens[:, t - 1]), cache, jnp.asarray(t),
-                method=VAEDecoder.step_token,
-            )
+            logits_t, cache = dec.step_token(
+                dp, jnp.asarray(tokens[:, t - 1]), cache, jnp.asarray(t))
             np.testing.assert_allclose(
                 np.asarray(logits_t), np.asarray(batched[:, t - 1]),
                 rtol=2e-4, atol=2e-4, err_msg=f"mismatch at step {t}",
@@ -231,10 +215,8 @@ class TestPreLN:
         classes = jnp.zeros((B,), jnp.int32)
 
         def loss_fn(p):
-            logits, mu, logvar = model.apply(
-                {"params": p}, tokens, seq_lens, classes, train=True,
-                rngs={"sample": jax.random.key(1),
-                      "dropout": jax.random.key(2)})
+            logits, mu, logvar = model(p, tokens, seq_lens, classes,
+                                       rng=jax.random.key(1))
             total, _ = vae_loss(logits, labels, mu, logvar, kl_weight=0.5)
             return total
 
@@ -246,8 +228,7 @@ class TestPreLN:
 
 class TestPerStepConditioning:
     """class_conditioning="per_step": the class embedding is added to every
-    decoder position's input (VERDICT r04 item 1 — at L=2046 the
-    initial-state-only signal loses the register axis to the latent)."""
+    decoder position's input."""
 
     @pytest.fixture(scope="class")
     def per_step_model(self):
@@ -277,18 +258,13 @@ class TestPerStepConditioning:
         z = jnp.asarray(rng.normal(size=(B, 8)), jnp.float32)
 
         dec = VAEDecoder(config=cfg.decoder_config, dtype=jnp.float32)
-        dp = {"params": params["decoder"]}
-        batched = dec.apply(dp, jnp.asarray(tokens), seq_lens, z, classes, False)
-        cache = dec.apply(dp, z, classes, L + 2, method=VAEDecoder.prefill)
+        dp = params["decoder"]
+        batched = dec(dp, jnp.asarray(tokens), seq_lens, z, classes)
+        cache = dec.prefill(dp, z, classes, L + 2)
         for t in range(1, L + 2):
-            logits_t, cache = dec.apply(
-                dp,
-                jnp.asarray(tokens[:, t - 1]),
-                cache,
-                jnp.asarray(t),
-                classes,
-                method=VAEDecoder.step_token,
-            )
+            logits_t, cache = dec.step_token(
+                dp, jnp.asarray(tokens[:, t - 1]), cache, jnp.asarray(t),
+                classes)
             np.testing.assert_allclose(
                 np.asarray(logits_t),
                 np.asarray(batched[:, t - 1]),
@@ -309,7 +285,7 @@ class TestPerStepConditioning:
         tokens = jnp.ones((B, L + 1), jnp.int32) * 3
         seq_lens = jnp.full((B,), L + 1, jnp.int32)
         z = jnp.zeros((B, 8), jnp.float32)
-        dp = {"params": params["decoder"]}
+        dp = params["decoder"]
 
         dec_ps = VAEDecoder(config=cfg.decoder_config, dtype=jnp.float32)
         dec_init = VAEDecoder(
@@ -317,8 +293,8 @@ class TestPerStepConditioning:
             dtype=jnp.float32,
         )
         classes = jnp.ones((B,), jnp.int32)
-        out_ps = dec_ps.apply(dp, tokens, seq_lens, z, classes, False)
-        out_init = dec_init.apply(dp, tokens, seq_lens, z, classes, False)
+        out_ps = dec_ps(dp, tokens, seq_lens, z, classes)
+        out_init = dec_init(dp, tokens, seq_lens, z, classes)
         # identical parameter tree (checkpoint compatibility), different math
         assert not np.allclose(np.asarray(out_ps), np.asarray(out_init))
 
@@ -380,14 +356,6 @@ class TestPerStepConditioning:
         with pytest.raises(ValueError, match="per_step"):
             init_params(model, jax.random.key(0), max_seq_len=6)
 
-    def test_fused_decode_gated_off(self, per_step_model):
-        from musicstyletransfer_tpu.ops.fused_decode import (
-            supports_fused_decode,
-        )
-
-        cfg, _, _ = per_step_model
-        assert not supports_fused_decode(cfg, 4, 16)
-
     def test_yaml_round_trip(self, tmp_path, per_step_model):
         cfg, _, _ = per_step_model
         p = str(tmp_path / "config")
@@ -408,16 +376,21 @@ class TestConfigYaml:
         assert loaded.encoder_config.transformer_config.model_size == 16
 
     def test_backward_compatible_defaults(self, tmp_path):
-        # A config file missing newer fields loads with defaults
-        # (reference: config.py:105-115).
+        # A config file missing newer fields loads with defaults, and keys
+        # of removed options (the attention-kernel switches of older
+        # versions) are ignored (reference: config.py:105-115).
         p = str(tmp_path / "config")
         with open(p, "w") as fh:
-            fh.write("!TransformerConfig\nmodel_size: 64\nnum_layers: 3\n")
+            fh.write('{"__type__": "TransformerConfig", "model_size": 64, '
+                     '"num_layers": 3, "use_flash_attention": true, '
+                     '"flash_min_seq_len": 1024, '
+                     '"attention_core_min_seq_len": 256, '
+                     '"attention_core_xla_backward": false}')
         loaded = Config.load(p)
         assert loaded.model_size == 64
         assert loaded.num_layers == 3
         assert loaded.num_heads == 8  # default filled in
-        assert loaded.use_flash_attention is False
+        assert not hasattr(loaded, "use_flash_attention")
 
 
 class TestRemat:
@@ -476,36 +449,32 @@ class TestRemat:
 
 class TestOneHotEmbedding:
     def test_onehot_lookup_exact_vs_gather(self):
-        """The MXU one-hot embedding lookup must be bit-exact vs nn.Embed's
-        gather: each output row multiplies the table by 1.0 exactly once
-        with f32 accumulation (models/vae.py:_embed_tokens_mxu). The decode
-        step path keeps the gather, so batched-forward == incremental-decode
-        (test_step_matches_batched_forward) also rests on this."""
-        import flax.linen as nn
+        """The embedding lookup (a gather) must equal the one-hot matmul
+        formulation of the same lookup bit-exactly: each output row is the
+        table row times 1.0 with f32 accumulation. The table gradients must
+        agree too (the gather's scatter-add vs one_hot^T @ g)."""
+        from musicstyletransfer_tpu.models import layers
 
-        from musicstyletransfer_tpu.models.vae import _embed_tokens_mxu
-
-        emb = nn.Embed(293, 128, dtype=jnp.float32)
-        variables = emb.init(jax.random.key(0), jnp.zeros((1,), jnp.int32))
+        params = layers.embed_params(jax.random.key(0), 293, 128)
         tokens = jax.random.randint(jax.random.key(1), (4, 37), 0, 293)
 
-        def via_onehot(v, t):
-            return _embed_tokens_mxu(emb.bind(v), t, jnp.float32)
+        def via_onehot(p, t):
+            oh = jax.nn.one_hot(t, 293, dtype=jnp.float32)
+            return jnp.dot(oh, p["embedding"],
+                           precision=jax.lax.Precision.HIGHEST)
 
-        def via_gather(v, t):
-            return emb.apply(v, t)
+        def via_gather(p, t):
+            return layers.embed(p, t, jnp.float32)
 
-        got = jax.jit(via_onehot)(variables, tokens)
-        want = jax.jit(via_gather)(variables, tokens)
+        got = jax.jit(via_onehot)(params, tokens)
+        want = jax.jit(via_gather)(params, tokens)
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
-        # Gradients w.r.t. the table must agree too (the backward is a
-        # one_hot^T @ g matmul vs the gather's scatter-add).
         def loss(fn):
-            def f(v):
-                out = fn(v, tokens)
+            def f(p):
+                out = fn(p, tokens)
                 return jnp.sum(out * jnp.arange(out.size).reshape(out.shape))
-            return jax.grad(f)(variables)
+            return jax.grad(f)(params)
 
         g0 = jax.tree.leaves(loss(via_onehot))[0]
         g1 = jax.tree.leaves(loss(via_gather))[0]

@@ -93,9 +93,7 @@ class TestTransformerPipeline:
     4-layer TransformerStack — the wide encoder's depth/structure —
     pipelined as pp stages of N/pp layers, key mask riding the pipeline
     beside the activations. Forward == the sequential stack, grads ==
-    sequential, and one full adam step trains identically (VERDICT r04
-    item 6: the pipeline primitive carries the real model, not an MLP
-    toy)."""
+    sequential, and one full adam step trains identically."""
 
     N_LAYERS, HEADS, D, T, B = 4, 16, 64, 8, 4
 
@@ -121,7 +119,7 @@ class TestTransformerPipeline:
         key_mask = jnp.asarray(
             (np.arange(self.T)[None, :] < lens[:, None]).astype(np.int32)
         )
-        params = module.init(jax.random.key(0), x, key_mask, False)["params"]
+        params = module.init(jax.random.key(0))
         return cfg, module, params, x, key_mask
 
     @pytest.mark.parametrize("pp,microbatches", [(2, 2), (4, 4)])
@@ -137,7 +135,7 @@ class TestTransformerPipeline:
             params, x, key_mask, config=cfg, causal=True, mesh=mesh,
             microbatches=microbatches,
         )
-        want = module.apply({"params": params}, x, key_mask, False)
+        want = module(params, x, key_mask)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    atol=1e-5)
 
@@ -161,7 +159,7 @@ class TestTransformerPipeline:
             return jnp.sum(out * w)
 
         def f_seq(params, x):
-            out = module.apply({"params": params}, x, key_mask, False)
+            out = module(params, x, key_mask)
             return jnp.sum(out * w)
 
         gp, gx = jax.jit(jax.grad(f_pipe, argnums=(0, 1)))(params, x)
@@ -197,7 +195,7 @@ class TestTransformerPipeline:
             return jnp.mean(out**2)
 
         def loss_seq(p):
-            out = module.apply({"params": p}, x, key_mask, False)
+            out = module(p, x, key_mask)
             return jnp.mean(out**2)
 
         tx = optax.adam(1e-3)
@@ -246,11 +244,11 @@ class TestPipelineTransformerLayer:
             # microbatch (all-valid here — masking itself is pinned by the
             # attention tests).
             key_mask = jnp.ones(h.shape[:2], jnp.int32)
-            return layer.apply({"params": params}, h, key_mask, False)
+            return layer(params, h, key_mask)
 
         init_mask = jnp.ones((B, T), jnp.int32)
-        p0 = layer.init(jax.random.key(0), x, init_mask, False)["params"]
-        p1 = layer.init(jax.random.key(1), x, init_mask, False)["params"]
+        p0 = layer.init(jax.random.key(0))
+        p1 = layer.init(jax.random.key(1))
         stacked = jax.tree.map(
             lambda a, b: jnp.stack([a, b]), p0, p1
         )

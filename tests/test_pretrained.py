@@ -1,9 +1,8 @@
 """The shipped pretrained checkpoint (models/guitar_bass) must stay loadable
-and usable: config parses, params restore cleanly (no unsafe targetless
-deserialization), decoding terminates with EOS, and output writes as MIDI.
+and usable: config parses, params restore cleanly, decoding terminates with
+EOS, and output writes as MIDI.
 
-A config or Orbax-layout drift would otherwise ship silently (round-1
-VERDICT weak #2)."""
+A config or checkpoint-layout drift would otherwise ship silently."""
 
 import os
 import warnings
@@ -22,7 +21,7 @@ def pretrained():
     from musicstyletransfer_tpu.inference.sampler import load_inference_model
 
     with warnings.catch_warnings():
-        # Restoring must not rely on orbax's unsafe targetless path.
+        # Restoring must not need an unsafe, targetless deserialization.
         warnings.filterwarnings(
             "error", message=".*[Uu]nsafe.*", category=UserWarning
         )
@@ -69,9 +68,7 @@ class TestPretrainedCheckpoint:
         not just class style: each transfer's pitch-class profile sits
         measurably closer to ITS OWN source row than to a rotated
         (shuffled-null) source row. Measured on this checkpoint: own 0.209
-        vs shuffled 0.274 over 64 transfers (VERDICT r03 item 8 — target
-        fit alone is blind to a collapsed latent, which would score
-        own == shuffled here)."""
+        vs shuffled 0.274 over 64 transfers."""
         from musicstyletransfer_tpu.data import Loader, MelodyDataset
         from musicstyletransfer_tpu.inference.quality import transfer_stats
 
@@ -133,7 +130,7 @@ PRETRAINED_GAN = os.path.join(REPO, "models", "gan_guitar_bass")
 
 class TestPretrainedGAN:
     """The shipped GAN generator (models/gan_guitar_bass — the measured-best
-    r1_gamma=0.1 14k-step run, BASELINE.md sweep) must stay loadable and
+    r1_gamma=0.1 14k-step run) must stay loadable and
     produce corpus-like, class-separated output."""
 
     @pytest.fixture(scope="class")
@@ -182,7 +179,7 @@ class TestPretrainedGAN:
         """Octave (register) profile of generated class-0 rows must sit
         closer to the guitar corpus than to bass, and vice versa — the
         shipped checkpoint's measured octave JS was own 0.036 / other
-        0.310 (BASELINE.md)."""
+        0.310."""
         import jax
         import jax.numpy as jnp
 

@@ -2,7 +2,7 @@
 
 Exactness bar: the ring is a re-association of the same softmax, so forward
 must match plain attention to f32 roundoff and gradients must match the
-XLA reference (the lse-cotangent path through flash_attention_with_lse is
+reference (the lse-cotangent path through the per-visit block attention is
 what makes the merged backward exact — also pinned here standalone).
 """
 
@@ -14,11 +14,9 @@ import numpy as np
 import pytest
 
 from musicstyletransfer_tpu.models import init_params, make_model
-from musicstyletransfer_tpu.ops import (
-    reference_attention,
-    ring_attention_sharded,
-)
-from musicstyletransfer_tpu.ops.flash_attention import flash_attention_with_lse
+from musicstyletransfer_tpu.ops import ring_attention_sharded
+from musicstyletransfer_tpu.ops import attention as attention_ops
+from musicstyletransfer_tpu.ops.ring_attention import block_attention
 from musicstyletransfer_tpu.parallel import make_mesh
 from tests.test_model import tiny_config
 
@@ -30,6 +28,15 @@ def _qkv(B=2, H=2, T=32, D=8, seed=0):
         for _ in range(3)
     )
     return q, k, v
+
+
+def reference_attention(q, k, v, key_lens, causal, sm_scale):
+    """ops.attention.reference_attention in this file's [B, H, T, D]
+    layout (its scale is always 1/sqrt(D))."""
+    assert np.isclose(sm_scale, 1.0 / np.sqrt(q.shape[-1]))
+    t = lambda x: x.transpose(0, 2, 1, 3)  # noqa: E731
+    return t(attention_ops.reference_attention(t(q), t(k), t(v), key_lens,
+                                               causal))
 
 
 def _ref_lse(q, k, v, key_lens, causal, sm_scale):
@@ -48,16 +55,15 @@ def _ref_lse(q, k, v, key_lens, causal, sm_scale):
 
 
 class TestFlashWithLse:
-    """flash_attention_with_lse: both outputs and both cotangent paths."""
+    """The ring's per-visit block attention (out, logsumexp): both outputs
+    and both cotangent paths."""
 
     @pytest.mark.parametrize("causal", [False, True])
     def test_forward_out_and_lse(self, causal):
         q, k, v = _qkv()
         key_lens = jnp.asarray([32, 17], jnp.int32)
         sm = 1.0 / np.sqrt(q.shape[-1])
-        out, lse = flash_attention_with_lse(
-            q, k, v, key_lens, causal, sm, True
-        )
+        out, lse = block_attention(q, k, v, key_lens, causal, sm)
         ref_out, ref_lse = _ref_lse(q, k, v, key_lens, causal, sm)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref_out),
                                    atol=1e-5)
@@ -78,9 +84,7 @@ class TestFlashWithLse:
         )
 
         def f_flash(q, k, v):
-            out, lse = flash_attention_with_lse(
-                q, k, v, key_lens, causal, sm, True
-            )
+            out, lse = block_attention(q, k, v, key_lens, causal, sm)
             return jnp.sum(out * w_out) + jnp.sum(lse * w_lse)
 
         def f_ref(q, k, v):
@@ -102,7 +106,7 @@ class TestRingAttention:
         q, k, v = _qkv(B=4, T=32)
         key_lens = jnp.asarray([32, 17, 9, 25], jnp.int32)
         out = ring_attention_sharded(
-            q, k, v, key_lens, causal=causal, mesh=mesh, interpret=True
+            q, k, v, key_lens, causal=causal, mesh=mesh
         )
         ref = reference_attention(
             q, k, v, key_lens, causal, 1.0 / np.sqrt(q.shape[-1])
@@ -123,7 +127,7 @@ class TestRingAttention:
 
         def f_ring(q, k, v):
             out = ring_attention_sharded(
-                q, k, v, key_lens, causal=causal, mesh=mesh, interpret=True
+                q, k, v, key_lens, causal=causal, mesh=mesh
             )
             return jnp.sum(out * w)
 
@@ -145,7 +149,7 @@ class TestRingAttention:
         q, k, v = _qkv(B=2, T=32, seed=5)
         key_lens = jnp.asarray([5, 11], jnp.int32)  # inside chunk 0 / 1
         out = ring_attention_sharded(
-            q, k, v, key_lens, causal=True, mesh=mesh, interpret=True
+            q, k, v, key_lens, causal=True, mesh=mesh
         )
         ref = reference_attention(
             q, k, v, key_lens, True, 1.0 / np.sqrt(q.shape[-1])
@@ -163,7 +167,7 @@ class TestRingAttention:
         q, k, v = _qkv(B=2, T=T, seed=8)
         key_lens = jnp.asarray([T, T - 7], jnp.int32)
         out = ring_attention_sharded(
-            q, k, v, key_lens, causal=causal, mesh=mesh, interpret=True
+            q, k, v, key_lens, causal=causal, mesh=mesh
         )
         ref = reference_attention(
             q, k, v, key_lens, causal, 1.0 / np.sqrt(q.shape[-1])
@@ -214,10 +218,8 @@ class TestRingInModel:
         classes = rng.integers(0, 3, (B,)).astype(np.int32)
 
         def fwd(model):
-            return model.apply(
-                {"params": params}, jnp.asarray(tokens),
-                jnp.asarray(seq_lens), jnp.asarray(classes), train=False,
-            )
+            return model(params, jnp.asarray(tokens), jnp.asarray(seq_lens),
+                         jnp.asarray(classes))
 
         ref = fwd(m0)
         mesh = make_mesh(cpu_devices[:8], tp=2)

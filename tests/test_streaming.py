@@ -24,7 +24,6 @@ from musicstyletransfer_tpu.midi import smf
 from musicstyletransfer_tpu.midi.codec import Melody, MelodyWriter
 from musicstyletransfer_tpu.midi.vocab import PAD_ID, SOS_ID, note_on_id, timeshift_id
 from musicstyletransfer_tpu.models import init_params, make_model
-from musicstyletransfer_tpu.models.vae import StyleVAE
 from tests.test_model import tiny_config
 
 
@@ -63,20 +62,13 @@ class TestRaggedStep:
         model = make_model(cfg)
         params = init_params(model, jax.random.key(0), max_seq_len=6)
         B, T = 4, 8
-        cache = model.apply({"params": params},
-                            jnp.zeros((B, 8), jnp.float32),
-                            jnp.zeros((B,), jnp.int32), T,
-                            method=StyleVAE.decode_prefill)
+        cache = model.decode_prefill(params, jnp.zeros((B, 8), jnp.float32),
+                                     jnp.zeros((B,), jnp.int32), T)
         toks = jnp.asarray([1, 3, 5, 7], jnp.int32)
         for t in (1, 2, 3):
-            logits_s, cache_s = model.apply(
-                {"params": params}, toks, cache, jnp.asarray(t),
-                method=StyleVAE.decode_step,
-            )
-            logits_r, cache_r = model.apply(
-                {"params": params}, toks, cache, jnp.full((B,), t, jnp.int32),
-                method=StyleVAE.decode_step_ragged,
-            )
+            logits_s, cache_s = model.decode_step(params, toks, cache, jnp.asarray(t))
+            logits_r, cache_r = model.decode_step_ragged(
+                params, toks, cache, jnp.full((B,), t, jnp.int32))
             np.testing.assert_array_equal(np.asarray(logits_s),
                                           np.asarray(logits_r))
             for (ks, vs), (kr, vr) in zip(cache_s, cache_r):
@@ -98,19 +90,14 @@ class TestRaggedStep:
         # Build each row's cache individually: prefill + (t-1) scalar steps.
         row_caches, row_logits = [], []
         for r, t_r in enumerate(rows_t):
-            cache = model.apply({"params": params},
-                                jnp.full((1, 8), 0.1 * r, jnp.float32),
-                                jnp.zeros((1,), jnp.int32), T,
-                                method=StyleVAE.decode_prefill)
+            cache = model.decode_prefill(
+                params, jnp.full((1, 8), 0.1 * r, jnp.float32),
+                jnp.zeros((1,), jnp.int32), T)
             for t in range(1, t_r):
                 tok = jnp.asarray([int(rng.integers(1, 9))], jnp.int32)
-                _, cache = model.apply({"params": params}, tok, cache,
-                                       jnp.asarray(t),
-                                       method=StyleVAE.decode_step)
+                _, cache = model.decode_step(params, tok, cache, jnp.asarray(t))
             tok = jnp.asarray([r + 1], jnp.int32)
-            logits, cache = model.apply({"params": params}, tok, cache,
-                                        jnp.asarray(t_r),
-                                        method=StyleVAE.decode_step)
+            logits, cache = model.decode_step(params, tok, cache, jnp.asarray(t_r))
             row_caches.append(cache)
             row_logits.append(np.asarray(logits)[0])
 
@@ -120,15 +107,12 @@ class TestRaggedStep:
         batch_cache = []
         pre_caches = []
         for r, t_r in enumerate(rows_t):
-            cache = model.apply({"params": params},
-                                jnp.full((1, 8), 0.1 * r, jnp.float32),
-                                jnp.zeros((1,), jnp.int32), T,
-                                method=StyleVAE.decode_prefill)
+            cache = model.decode_prefill(
+                params, jnp.full((1, 8), 0.1 * r, jnp.float32),
+                jnp.zeros((1,), jnp.int32), T)
             for t in range(1, t_r):
                 tok = jnp.asarray([int(rng.integers(1, 9))], jnp.int32)
-                _, cache = model.apply({"params": params}, tok, cache,
-                                       jnp.asarray(t),
-                                       method=StyleVAE.decode_step)
+                _, cache = model.decode_step(params, tok, cache, jnp.asarray(t))
             pre_caches.append(cache)
         n_layers = len(pre_caches[0])
         for li in range(n_layers):
@@ -137,10 +121,8 @@ class TestRaggedStep:
             batch_cache.append((k, v))
         toks = jnp.asarray([r + 1 for r in range(B)], jnp.int32)
         t_vec = jnp.asarray(rows_t, jnp.int32)
-        logits_r, cache_r = model.apply(
-            {"params": params}, toks, tuple(batch_cache), t_vec,
-            method=StyleVAE.decode_step_ragged,
-        )
+        logits_r, cache_r = model.decode_step_ragged(
+            params, toks, tuple(batch_cache), t_vec)
         logits_r = np.asarray(logits_r)
         for r in range(B):
             np.testing.assert_allclose(logits_r[r], row_logits[r],
@@ -180,7 +162,7 @@ class TestEngineEquivalence:
             ref_seqs, _ = sample_sequences(
                 eng.model, eng.params, jnp.asarray(tokens), seq_lens,
                 jnp.full((1,), c, jnp.int32), budget, jax.random.key(0),
-                greedy=True, use_fused=False,
+                greedy=True,
             )
             ref = np.asarray(ref_seqs)[0]  # [budget], SOS at 0
             got = result.tokens_by_class[c]
@@ -243,7 +225,7 @@ class TestEngineEquivalence:
                 ref_seqs, _ = sample_sequences(
                     eng.model, eng.params, jnp.asarray(tokens), seq_lens,
                     jnp.full((1,), c, jnp.int32), budget, jax.random.key(0),
-                    greedy=True, use_fused=False,
+                    greedy=True,
                 )
                 ref_melody = melody_from_ids(np.asarray(ref_seqs)[0])
                 np.testing.assert_array_equal(
@@ -404,7 +386,7 @@ class TestEngineServing:
     def test_default_admit_size_is_full_width(self, model_folder):
         """admit_size defaults to slots (full-width admission): the round-5
         overload curve measured narrow admission as the overload
-        bottleneck (BASELINE.md), so the shipped default admits into every
+        bottleneck, so the shipped default admits into every
         free slot per cycle. Explicit values still win."""
         from musicstyletransfer_tpu.inference.streaming import (
             StreamingTransferEngine,
@@ -530,7 +512,7 @@ class TestEngineServing:
 
     def test_dispatcher_throttles_at_completion_bound(self, model_folder):
         """With a harvest delay forcing the readout round trip to lag
-        (the tunnel regime), the dispatcher must stop issuing cycles once
+        (a slow device link), the dispatcher must stop issuing cycles once
         every unit is past its budget bound instead of free-running
         no-op dispatches while waiting for the copy to land."""
         from musicstyletransfer_tpu.inference.streaming import (
@@ -553,7 +535,7 @@ class TestEngineServing:
 
     def test_harvest_delay_calibration(self, model_folder):
         """Auto mode measures the fetch round trip: on CPU (microsecond
-        fetches) it must calibrate to ZERO allowance — any fixed tunnel
+        fetches) it must calibrate to ZERO allowance — any fixed remote-link
         allowance here would tax every request's latency for nothing —
         and an explicit value must be honored verbatim."""
         from musicstyletransfer_tpu.inference.streaming import (
@@ -596,7 +578,7 @@ class TestEngineServing:
         )
 
         c = HarvestDelayController(0.028)
-        # Tunnel degrades: copies land 1.3 s after dispatch, harvests at
+        # The link degrades: copies land 1.3 s after dispatch, harvests at
         # elapsed=30ms block the remaining 1.27 s. ONE such block is
         # indistinguishable from a lone host stall -> hold; the SECOND
         # consecutive recalibrates to the startup formula on the
